@@ -25,15 +25,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-    from feynmandiagram_tpu.frontends.diagram_id import (BareGreenId,
+    from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+    from feynmandiagram.frontends.diagram_id import (BareGreenId,
                                                          BareInteractionId)
-    from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+    from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                       SigmaDiag, sigma)
-    from feynmandiagram_tpu.computational_graph import optimize_inplace
-    from feynmandiagram_tpu.utility import taylorAD
-    from feynmandiagram_tpu.backends.compile import compile_evaluator
-    from feynmandiagram_tpu.ops.evaluator import recommended_batch
+    from feynmandiagram.computational_graph import optimize_inplace
+    from feynmandiagram.utility import taylorAD
+    from feynmandiagram.backends.compile import compile_evaluator
+    from feynmandiagram.ops.evaluator import recommended_batch
 
     on_tpu = jax.devices()[0].platform != "cpu"
     dtype = jnp.float32 if on_tpu else jnp.float64

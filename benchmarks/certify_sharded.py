@@ -37,14 +37,14 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
-    from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-    from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+    from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+    from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                       Ver4Diag, vertex4)
-    from feynmandiagram_tpu.computational_graph import optimize_inplace
-    from feynmandiagram_tpu.backends.compile import leafmap_of
-    from feynmandiagram_tpu.ops import lower, make_evaluator
-    from feynmandiagram_tpu.parallel import make_sample_mesh
-    from feynmandiagram_tpu.parallel.graph_shard import make_graph_sharded_evaluator
+    from feynmandiagram.computational_graph import optimize_inplace
+    from feynmandiagram.backends.compile import leafmap_of
+    from feynmandiagram.ops import lower, make_evaluator
+    from feynmandiagram.parallel import make_sample_mesh
+    from feynmandiagram.parallel.graph_shard import make_graph_sharded_evaluator
 
     order = int(os.environ.get("FDTPU_CERT_ORDER", 5))
     n_dev = int(os.environ.get("FDTPU_CERT_NDEV", 8))
@@ -61,7 +61,7 @@ def main():
     t_opt = time.time() - t0
     lm = leafmap_of(roots)
     t0 = time.time()
-    from feynmandiagram_tpu.parallel.graph_shard import lower_sharded_best
+    from feynmandiagram.parallel.graph_shard import lower_sharded_best
     lowered, sched = lower_sharded_best(roots, lm, n_dev)
     live = lower(roots, lm, sum_mode="fused", cse=True, reuse_slots=True)
     t_low = time.time() - t0

@@ -4,13 +4,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-from feynmandiagram_tpu.frontends.parquet import DiagPara, Interaction, Ver4Diag, vertex4
-from feynmandiagram_tpu.computational_graph import optimize_inplace
-from feynmandiagram_tpu.backends.compile import leafmap_of, leaf_graphs_of
-from feynmandiagram_tpu.ops.lowering import lower
-from feynmandiagram_tpu.ops.leaf_eval import leaf_tables_from_lowered, make_leaf_evaluator
-from feynmandiagram_tpu.ops.evaluator import make_evaluator
+from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+from feynmandiagram.frontends.parquet import DiagPara, Interaction, Ver4Diag, vertex4
+from feynmandiagram.computational_graph import optimize_inplace
+from feynmandiagram.backends.compile import leafmap_of, leaf_graphs_of
+from feynmandiagram.ops.lowering import lower
+from feynmandiagram.ops.leaf_eval import leaf_tables_from_lowered, make_leaf_evaluator
+from feynmandiagram.ops.evaluator import make_evaluator
 
 order = 4
 para = DiagPara(type=Ver4Diag, innerLoopNum=order, hasTau=True,

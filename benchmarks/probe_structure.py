@@ -17,11 +17,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-    from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+    from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+    from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                       Ver4Diag, vertex4)
-    from feynmandiagram_tpu.computational_graph import optimize_inplace
-    from feynmandiagram_tpu.backends.compile import compile_evaluator
+    from feynmandiagram.computational_graph import optimize_inplace
+    from feynmandiagram.backends.compile import compile_evaluator
 
     t0 = time.time()
     para = DiagPara(type=Ver4Diag, innerLoopNum=4, hasTau=True,

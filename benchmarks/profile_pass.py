@@ -32,11 +32,11 @@ def build_mc_chunk(order: int, batch: int, iters: int):
     import jax
     import jax.numpy as jnp
 
-    from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-    from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+    from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+    from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                       Ver4Diag, vertex4)
-    from feynmandiagram_tpu.computational_graph import optimize_inplace
-    from feynmandiagram_tpu.backends.compile import compile_evaluator
+    from feynmandiagram.computational_graph import optimize_inplace
+    from feynmandiagram.backends.compile import compile_evaluator
 
     on_tpu = jax.devices()[0].platform != "cpu"
     dtype = jnp.float32 if on_tpu else jnp.float64

@@ -48,10 +48,10 @@ ICI_GBPS = 400.0
 
 
 def build(order: int):
-    from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-    from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+    from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+    from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                       Ver4Diag, vertex4)
-    from feynmandiagram_tpu.computational_graph import optimize_inplace
+    from feynmandiagram.computational_graph import optimize_inplace
 
     para = DiagPara(type=Ver4Diag, innerLoopNum=order, hasTau=True,
                     filter=(NoHartree,),
@@ -64,8 +64,8 @@ def build(order: int):
 def sample_axis_points(roots, para, device_counts, batch_total, iters):
     """samples/s at fixed total batch, sample-axis DP over n devices."""
     import jax
-    from feynmandiagram_tpu.backends.compile import compile_evaluator
-    from feynmandiagram_tpu.parallel import make_sample_mesh, shard_compiled
+    from feynmandiagram.backends.compile import compile_evaluator
+    from feynmandiagram.parallel import make_sample_mesh, shard_compiled
 
     compiled = compile_evaluator(roots, max_loop_num=para.totalLoopNum,
                                  beta=0.5, kF=1.919, lam=1.0)
@@ -92,10 +92,10 @@ def graph_axis_points(roots, para, device_counts, batch, iters):
     """edges/s through the memory-partitioned graph-sharded evaluator,
     plus exact per-level halo traffic from the planner."""
     import jax
-    from feynmandiagram_tpu.backends.compile import leafmap_of
-    from feynmandiagram_tpu.ops import lower
-    from feynmandiagram_tpu.parallel import make_sample_mesh
-    from feynmandiagram_tpu.parallel.graph_shard import make_graph_sharded_evaluator
+    from feynmandiagram.backends.compile import leafmap_of
+    from feynmandiagram.ops import lower
+    from feynmandiagram.parallel import make_sample_mesh
+    from feynmandiagram.parallel.graph_shard import make_graph_sharded_evaluator
 
     leafmap = leafmap_of(roots)
     lowered = lower(roots, leafmap, sum_mode="fused", cse=True,

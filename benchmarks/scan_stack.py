@@ -31,7 +31,7 @@ def make_scan_evaluator(lowered, *, dtype, chunk_rows=512, min_group=2):
     back to the unrolled path (ops/evaluator.py::_eval_levels_tile)."""
     import jax
     import jax.numpy as jnp
-    from feynmandiagram_tpu.ops.evaluator import _take
+    from feynmandiagram.ops.evaluator import _take
 
     num_slots = lowered.num_slots
     nl_total = lowered.num_leaves
@@ -129,14 +129,14 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-    from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+    from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+    from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                       Ver4Diag, vertex4)
-    from feynmandiagram_tpu.computational_graph import optimize_inplace
-    from feynmandiagram_tpu.backends.compile import (compile_evaluator,
+    from feynmandiagram.computational_graph import optimize_inplace
+    from feynmandiagram.backends.compile import (compile_evaluator,
                                                      leafmap_of,
                                                      leaf_graphs_of)
-    from feynmandiagram_tpu.ops.leaf_eval import (leaf_tables_from_lowered,
+    from feynmandiagram.ops.leaf_eval import (leaf_tables_from_lowered,
                                                   make_leaf_evaluator)
 
     order = int(sys.argv[1]) if len(sys.argv) > 1 else 4
@@ -186,7 +186,7 @@ def main():
         print(f"{label}: {sps / 1e3:.1f}k samples/s")
         return sps
 
-    from feynmandiagram_tpu.ops.evaluator import make_evaluator
+    from feynmandiagram.ops.evaluator import make_evaluator
     base_fn = make_evaluator(low, dtype=dtype, jit=False, layout="tile")
     scan_fn = make_scan_evaluator(low, dtype=dtype)
 

@@ -20,12 +20,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    import feynmandiagram_tpu.ops.evaluator as E
-    from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-    from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+    import feynmandiagram.ops.evaluator as E
+    from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+    from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                       Ver4Diag, vertex4)
-    from feynmandiagram_tpu.computational_graph import optimize_inplace
-    from feynmandiagram_tpu.backends.compile import compile_evaluator
+    from feynmandiagram.computational_graph import optimize_inplace
+    from feynmandiagram.backends.compile import compile_evaluator
 
     dtype = jnp.float32
     order = int(os.environ.get("FDTPU_BENCH_ORDER", 4))

@@ -14,7 +14,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import math
 
-from feynmandiagram_tpu.models.hubbard_atom import (exact_sigma,
+from feynmandiagram.models.hubbard_atom import (exact_sigma,
                                                     sigma_power_series,
                                                     sigma_mc)
 

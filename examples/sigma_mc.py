@@ -14,12 +14,12 @@ import time
 import jax
 import numpy as np
 
-from feynmandiagram_tpu.backends import compile_evaluator
-from feynmandiagram_tpu.computational_graph import optimize_inplace
-from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+from feynmandiagram.backends import compile_evaluator
+from feynmandiagram.computational_graph import optimize_inplace
+from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                   SigmaDiag, sigma)
-from feynmandiagram_tpu.parallel import make_sample_mesh, make_mc_step
+from feynmandiagram.parallel import make_sample_mesh, make_mc_step
 
 KF, BETA, LAM = 1.919, 0.5, 1.0
 

@@ -31,7 +31,7 @@ def main():
     import jax
     jax.config.update("jax_enable_x64", True)
 
-    from feynmandiagram_tpu.models.atom_ed import (hubbard_atom_model,
+    from feynmandiagram.models.atom_ed import (hubbard_atom_model,
                                                    hubbard_dimer_model)
 
     u = float(sys.argv[1]) if len(sys.argv) > 1 else 2.0

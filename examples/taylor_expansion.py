@@ -10,12 +10,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from feynmandiagram_tpu.computational_graph import count_operation, optimize_inplace
-from feynmandiagram_tpu.frontends import (BareGreenId, BareInteractionId,
+from feynmandiagram.computational_graph import count_operation, optimize_inplace
+from feynmandiagram.frontends import (BareGreenId, BareInteractionId,
                                           ChargeCharge, Instant, NoHartree)
-from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                   SigmaDiag, sigma)
-from feynmandiagram_tpu.utility import taylorAD
+from feynmandiagram.utility import taylorAD
 
 
 def main():

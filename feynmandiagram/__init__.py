@@ -1,4 +1,4 @@
-"""feynmandiagram_tpu — a TPU-native framework for compiling and evaluating
+"""feynmandiagram — a TPU-native framework for compiling and evaluating
 Feynman-diagram computational graphs.
 
 Built from scratch against the capability surface of

@@ -1,7 +1,7 @@
 """First-order forward/backward AD on the graph IR.
 
 These are the AD building blocks; the production renormalization path is
-Taylor-mode AD (``feynmandiagram_tpu.utility.taylorAD``).  Reference:
+Taylor-mode AD (``feynmandiagram.utility.taylorAD``).  Reference:
 /root/reference/src/computational_graph/operation.jl.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """CLI: generate the bundled diagram tables.
 
-    python -m feynmandiagram_tpu.frontends.gv.generator [out_dir] \
+    python -m feynmandiagram.frontends.gv.generator [out_dir] \
         [--max-total-order N] [--vertex4-max N] [--kinds a,b,c]
 
 Writes .diag tables (the contract consumed by frontends.gv.readfile) into

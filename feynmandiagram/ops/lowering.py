@@ -6,7 +6,7 @@ emitting one scalar expression per node evaluated once per Monte-Carlo
 sample, the DAG is flattened to numpy arrays grouped by topological level
 and node kind, so each level evaluates as a few batched vector ops
 (gather-multiply + segment-sum) over the whole MC sample tensor under
-``jax.jit`` (see ``feynmandiagram_tpu.ops.evaluator``).
+``jax.jit`` (see ``feynmandiagram.ops.evaluator``).
 
 Layout
 ------

@@ -14,7 +14,7 @@ import math
 import numpy as np
 import pytest
 
-from feynmandiagram_tpu.models.atom_ed import (
+from feynmandiagram.models.atom_ed import (
     DOWN, UP, EDModel, FockSpace, hubbard_atom_model, hubbard_dimer_model,
     hubbard_hamiltonian)
 
@@ -82,7 +82,7 @@ class TestGreen:
         reference's diagrammatic convention with a (−1) per interaction
         line (feynman_rule.md:88-110) — its Σ is the NEGATIVE of the
         standard Dyson Σ, verified here to 1e-13 at every parameter set."""
-        from feynmandiagram_tpu.models.hubbard_atom import exact_sigma
+        from feynmandiagram.models.hubbard_atom import exact_sigma
 
         for (u, mu, beta) in [(1.0, 0.0, 1.0), (2.5, 0.6, 0.8),
                               (4.0, -0.3, 1.5)]:

@@ -3,8 +3,8 @@ evaluates to the same value as the interpreter; DOT export wellformedness."""
 import numpy as np
 import pytest
 
-from feynmandiagram_tpu.computational_graph import Graph, PROD, SUM, Power, eval_graph
-from feynmandiagram_tpu.backends import (compile_python, to_julia_str, to_c_str,
+from feynmandiagram.computational_graph import Graph, PROD, SUM, Power, eval_graph
+from feynmandiagram.backends import (compile_python, to_julia_str, to_c_str,
                                          to_dot_str, to_python_str)
 
 
@@ -83,7 +83,7 @@ class TestSourceExports:
     def test_plot_tree_graphical(self, tmp_path):
         """Graphical tree rendering (reference io.jl:126-175 plot_tree via
         ete3 -> matplotlib here): writes a non-trivial image file."""
-        from feynmandiagram_tpu.computational_graph import plot_tree_graphical
+        from feynmandiagram.computational_graph import plot_tree_graphical
 
         roots, *_ = _example()
         out = tmp_path / "tree.png"

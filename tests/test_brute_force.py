@@ -8,13 +8,13 @@ reference nor any earlier round ever checked live.
 import numpy as np
 import pytest
 
-from feynmandiagram_tpu.computational_graph import eval_graph
-from feynmandiagram_tpu.frontends import (NoHartree, NoFock, Girreducible,
+from feynmandiagram.computational_graph import eval_graph
+from feynmandiagram.frontends import (NoHartree, NoFock, Girreducible,
                                           ChargeCharge, Instant)
-from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                   PolarDiag, polarization,
                                                   benchmark)
-from feynmandiagram_tpu.frontends.parquet.benchmark.brute_force import (
+from feynmandiagram.frontends.parquet.benchmark.brute_force import (
     count_polar_brute_force, count_sigma_brute_force)
 
 

@@ -3,8 +3,8 @@ import os
 
 import pytest
 
-from feynmandiagram_tpu.frontends import gv
-from feynmandiagram_tpu.computational_graph import eval_graph
+from feynmandiagram.frontends import gv
+from feynmandiagram.computational_graph import eval_graph
 
 BUNDLED = os.path.join(os.path.dirname(gv.__file__), "tables")
 pytestmark = pytest.mark.skipif(
@@ -31,8 +31,8 @@ def test_sigma_tables_load():
 
 
 def test_counterterm_equivalence_on_bundled():
-    from feynmandiagram_tpu.taylor import set_variables
-    from feynmandiagram_tpu.utility import taylorexpansion_feynman
+    from feynmandiagram.taylor import set_variables
+    from feynmandiagram.utility import taylorexpansion_feynman
 
     orders = [(2, 0, 0), (2, 0, 1), (2, 1, 0), (2, 1, 1)]
     dict_g = {}
@@ -50,8 +50,8 @@ def test_counterterm_equivalence_on_bundled():
 
 def test_counterterm_equivalence_order3_on_bundled():
     """Order-3 counterterm contract on the self-generated tables."""
-    from feynmandiagram_tpu.taylor import set_variables
-    from feynmandiagram_tpu.utility import taylorexpansion_feynman
+    from feynmandiagram.taylor import set_variables
+    from feynmandiagram.utility import taylorexpansion_feynman
 
     orders = [(3, 0, 0), (3, 1, 0), (3, 0, 1), (3, 1, 1), (3, 2, 0)]
     dict_g = {}
@@ -68,6 +68,6 @@ def test_counterterm_equivalence_order3_on_bundled():
 
 
 def test_vertex4I_tables_load():
-    from feynmandiagram_tpu.frontends.common import Alli
+    from feynmandiagram.frontends.common import Alli
     graphs = gv.diagsGV_ver4(3, channels=[Alli])
     assert len(graphs) > 0

@@ -3,7 +3,7 @@ import copy
 
 import pytest
 
-from feynmandiagram_tpu.computational_graph import (
+from feynmandiagram.computational_graph import (
     Graph, Power, SUM, PROD, Op, isequiv, linear_combination, multi_product,
     eval_graph, constant_graph, count_operation, count_leaves,
     merge_linear_combination, merge_multi_product, merge_linear_combination_inplace,
@@ -271,7 +271,7 @@ class TestOptimizations:
                 assert a == pytest.approx(b)
 
     def test_remove_duplicated_nodes(self):
-        from feynmandiagram_tpu.computational_graph import remove_duplicated_nodes_inplace
+        from feynmandiagram.computational_graph import remove_duplicated_nodes_inplace
         # two structurally identical subtrees with different uids merge
         l1, l2 = Graph([]), Graph([])
         a = Graph([l1, l2], subgraph_factors=[2, 3])
@@ -388,7 +388,7 @@ class TestAD:
 
 class TestForwardAdRootNumeric:
     def test_first_derivative_value(self):
-        from feynmandiagram_tpu.computational_graph import forward_ad_root
+        from feynmandiagram.computational_graph import forward_ad_root
         # f = x^2 * y ; df/dx should evaluate to 2xy when dx-leaf dual := 1, dy-leaf dual := 0
         x, y = Graph([]), Graph([])
         f = Graph([Graph([x], operator=Power(2)), y], operator=PROD)

@@ -2,15 +2,15 @@
 /root/reference/test/computational_graph.jl:509-888 and quantum_operator.jl."""
 import pytest
 
-from feynmandiagram_tpu.quantum_operators import (
+from feynmandiagram.quantum_operators import (
     OperatorProduct, QuantumOperator, fp, fm, bp, bm, phi, parity,
     normal_order, correlator_order,
 )
-from feynmandiagram_tpu.computational_graph import (
+from feynmandiagram.computational_graph import (
     Graph, isequiv, eval_graph,
     FeynmanGraph, feynman_diagram, propagator, interaction, external_vertex,
 )
-from feynmandiagram_tpu.computational_graph.feynman_graph import (
+from feynmandiagram.computational_graph.feynman_graph import (
     vertices, external_operators, external_labels, feynman_linear_combination,
 )
 
@@ -165,7 +165,7 @@ class TestRelabel:
     """Transcribed from computational_graph.jl:617-643 (0-based topology)."""
 
     def test_relabel(self):
-        from feynmandiagram_tpu.computational_graph import relabel, collect_labels
+        from feynmandiagram.computational_graph import relabel, collect_labels
         V = [ops(fp(1), fm(2), phi(3)), ops(fp(4), fm(5), phi(6)),
              ops(fp(7), fm(8), phi(9))]
         g1 = feynman_diagram([interaction(v) for v in V], [[0, 4], [2, 8], [3, 7]])
@@ -179,7 +179,7 @@ class TestRelabel:
         assert collect_labels(g3) == [1]
 
     def test_standardize_labels(self):
-        from feynmandiagram_tpu.computational_graph import (relabel,
+        from feynmandiagram.computational_graph import (relabel,
                                                             standardize_labels,
                                                             collect_labels)
         V = [ops(fp(1), fm(2), phi(3)), ops(fp(4), fm(5), phi(6)),

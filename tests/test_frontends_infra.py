@@ -2,17 +2,17 @@
 import numpy as np
 import pytest
 
-from feynmandiagram_tpu.frontends import (LoopPool, LabelProduct, BareGreenId,
+from feynmandiagram.frontends import (LoopPool, LabelProduct, BareGreenId,
                                           BareInteractionId, GenericId, SigmaId,
                                           mirror_symmetrize, reconstruct,
                                           ChargeCharge, UpUp, Instant, Dynamic,
                                           leafstates)
-from feynmandiagram_tpu.frontends.parquet import (DiagPara, SigmaDiag, GreenDiag,
+from feynmandiagram.frontends.parquet import (DiagPara, SigmaDiag, GreenDiag,
                                                   Ver4Diag, reconstruct_para,
                                                   inner_tau_num, first_tau_idx,
                                                   first_loop_idx, interaction_tau_num,
                                                   Interaction)
-from feynmandiagram_tpu.computational_graph import Graph
+from feynmandiagram.computational_graph import Graph
 
 
 class TestLoopPool:

@@ -19,10 +19,10 @@ REF_TABLES = "/root/reference/src/frontend/GV_diagrams"
 pytestmark = pytest.mark.skipif(not os.path.isdir(REF_TABLES),
                                 reason="reference tables unavailable")
 
-from feynmandiagram_tpu.computational_graph import eval_graph
-from feynmandiagram_tpu.frontends.diagram_id import BareGreenId, BareInteractionId
-from feynmandiagram_tpu.frontends.gv.readfile import read_diagrams
-from feynmandiagram_tpu.frontends.gv.generator import (generate_sigma,
+from feynmandiagram.computational_graph import eval_graph
+from feynmandiagram.frontends.diagram_id import BareGreenId, BareInteractionId
+from feynmandiagram.frontends.gv.readfile import read_diagrams
+from feynmandiagram.frontends.gv.generator import (generate_sigma,
                                                        generate_polar,
                                                        generate_green,
                                                        generate_free_energy)
@@ -162,9 +162,9 @@ class TestFreeEnergyTables:
                  generate_free_energy, order, v, g, tmp_path)
 
 
-from feynmandiagram_tpu.frontends.common import Alli, PHr, PHEr, PPr, UpUp, UpDown
-from feynmandiagram_tpu.frontends.gv.readfile import read_vertex4_diagrams
-from feynmandiagram_tpu.frontends.gv.generator.tables import generate_vertex4
+from feynmandiagram.frontends.common import Alli, PHr, PHEr, PPr, UpUp, UpDown
+from feynmandiagram.frontends.gv.readfile import read_vertex4_diagrams
+from feynmandiagram.frontends.gv.generator.tables import generate_vertex4
 
 
 def _ver4_totals(path, lattice=False):
@@ -232,7 +232,7 @@ class TestVertex4Tables:
     def test_order4_bundled_vs_reference(self):
         # order-4 generation takes ~2 min, so compare the bundled
         # (pre-generated) table against the reference table instead
-        import feynmandiagram_tpu.frontends.gv as gvmod
+        import feynmandiagram.frontends.gv as gvmod
         bundled = os.path.join(os.path.dirname(gvmod.__file__), "tables",
                                "groups_vertex4", "Vertex44_0_0.diag")
         ref_path = os.path.join(REF_TABLES, "groups_vertex4",

@@ -16,12 +16,12 @@ REF_TABLES = "/root/reference/src/frontend/GV_diagrams"
 pytestmark = pytest.mark.skipif(not os.path.isdir(REF_TABLES),
                                 reason="GV tables unavailable")
 
-from feynmandiagram_tpu.frontends import gv
-from feynmandiagram_tpu.frontends.gv import diagsGV, diagsGV_ver4
-from feynmandiagram_tpu.computational_graph import eval_graph
-from feynmandiagram_tpu.frontends.common import Alli, PHr, PHEr, PPr
-from feynmandiagram_tpu.taylor import set_variables
-from feynmandiagram_tpu.utility import taylorexpansion_feynman
+from feynmandiagram.frontends import gv
+from feynmandiagram.frontends.gv import diagsGV, diagsGV_ver4
+from feynmandiagram.computational_graph import eval_graph
+from feynmandiagram.frontends.common import Alli, PHr, PHEr, PPr
+from feynmandiagram.taylor import set_variables
+from feynmandiagram.utility import taylorexpansion_feynman
 
 gv.set_table_path(REF_TABLES)
 
@@ -42,7 +42,7 @@ class TestReader:
         graphs = diagsGV_ver4(3, channels=[Alli])
         assert len(graphs) > 0
         # graphs alternate UpUp / UpDown per (extT, channel) group
-        from feynmandiagram_tpu.frontends.common import UpUp, UpDown
+        from feynmandiagram.frontends.common import UpUp, UpDown
         assert graphs[0].properties.response == UpUp
         assert graphs[1].properties.response == UpDown
 

@@ -8,7 +8,7 @@ import math
 
 import pytest
 
-from feynmandiagram_tpu.models.hubbard_atom import (exact_sigma,
+from feynmandiagram.models.hubbard_atom import (exact_sigma,
                                                     sigma_power_series,
                                                     sigma_mc)
 

@@ -8,10 +8,10 @@ import random
 import numpy as np
 import pytest
 
-from feynmandiagram_tpu.computational_graph import (
+from feynmandiagram.computational_graph import (
     Graph, SUM, PROD, Power, constant_graph, eval_graph, optimize,
 )
-from feynmandiagram_tpu.ops import lower, make_evaluator, evaluate_graphs
+from feynmandiagram.ops import lower, make_evaluator, evaluate_graphs
 
 
 def random_dag(rng, leaves, depth=5, fan=3):
@@ -256,12 +256,12 @@ class TestFusedMode:
 
     def test_fused_order2_sigma(self):
         """Order-2 sigma via parquet: fused == csr on physical-ish leaves."""
-        from feynmandiagram_tpu.frontends import (ChargeCharge, Instant,
+        from feynmandiagram.frontends import (ChargeCharge, Instant,
                                                   NoHartree)
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara,
+        from feynmandiagram.frontends.parquet import (DiagPara,
                                                           Interaction,
                                                           SigmaDiag, sigma)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
+        from feynmandiagram.computational_graph import optimize_inplace
 
         para = DiagPara(type=SigmaDiag, innerLoopNum=2, hasTau=True,
                         filter=(NoHartree,),
@@ -269,7 +269,7 @@ class TestFusedMode:
         df = sigma(para)
         roots = [row["diagram"] for row in df]
         optimize_inplace(roots, level=1)
-        from feynmandiagram_tpu.backends.compile import leafmap_of
+        from feynmandiagram.backends.compile import leafmap_of
         leafmap = leafmap_of(roots)
         rng = np.random.default_rng(0)
         vals = rng.standard_normal((len(leafmap), 5))
@@ -291,11 +291,11 @@ class TestTileLayout:
         must equal layout='flat' up to summation order, for every bucket
         shape of a real parquet graph (incl. arity > unroll_max)."""
         import jax.numpy as jnp
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           Ver4Diag, vertex4)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
-        from feynmandiagram_tpu.backends.compile import leafmap_of
+        from feynmandiagram.computational_graph import optimize_inplace
+        from feynmandiagram.backends.compile import leafmap_of
 
         para = DiagPara(type=Ver4Diag, innerLoopNum=3, hasTau=True,
                         filter=(NoHartree,),
@@ -314,11 +314,11 @@ class TestTileLayout:
 
     def test_tile_compensated(self):
         import jax.numpy as jnp
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           SigmaDiag, sigma)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
-        from feynmandiagram_tpu.backends.compile import leafmap_of
+        from feynmandiagram.computational_graph import optimize_inplace
+        from feynmandiagram.backends.compile import leafmap_of
 
         para = DiagPara(type=SigmaDiag, innerLoopNum=3, hasTau=True,
                         filter=(NoHartree,),
@@ -345,11 +345,11 @@ class TestTileLayout:
         this is the VMEM-resident shape of the order-5 production graph
         (VERDICT r4 weak #1)."""
         import jax.numpy as jnp
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           Ver4Diag, vertex4)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
-        from feynmandiagram_tpu.backends.compile import leafmap_of
+        from feynmandiagram.computational_graph import optimize_inplace
+        from feynmandiagram.backends.compile import leafmap_of
 
         para = DiagPara(type=Ver4Diag, innerLoopNum=2, hasTau=True,
                         filter=(NoHartree,),
@@ -371,11 +371,11 @@ class TestTileLayout:
         """The bucket-chunk size (a pure performance knob, default 256
         tile / 512 flat) never changes results."""
         import jax.numpy as jnp
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           Ver4Diag, vertex4)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
-        from feynmandiagram_tpu.backends.compile import leafmap_of
+        from feynmandiagram.computational_graph import optimize_inplace
+        from feynmandiagram.backends.compile import leafmap_of
 
         para = DiagPara(type=Ver4Diag, innerLoopNum=2, hasTau=True,
                         filter=(NoHartree,),
@@ -398,8 +398,8 @@ class TestTileLayout:
         fallback) for non-4-byte dtypes and non-256-multiple batches
         (ADVICE r4 #1)."""
         import jax.numpy as jnp
-        from feynmandiagram_tpu.computational_graph import Graph
-        from feynmandiagram_tpu.computational_graph.operators import SUM
+        from feynmandiagram.computational_graph import Graph
+        from feynmandiagram.computational_graph.operators import SUM
         leaves = [Graph([], properties=i) for i in range(3)]
         s = Graph(leaves, subgraph_factors=[1.0, 2.0, 3.0], operator=SUM)
         lowered = lower([s], {leaf.id: i for i, leaf in enumerate(leaves)},
@@ -415,8 +415,8 @@ class TestTileLayout:
 
     def test_tile_rejects_non_fused(self):
         import jax.numpy as jnp
-        from feynmandiagram_tpu.computational_graph import Graph
-        from feynmandiagram_tpu.computational_graph.operators import SUM
+        from feynmandiagram.computational_graph import Graph
+        from feynmandiagram.computational_graph.operators import SUM
         leaves = [Graph([], properties=i) for i in range(3)]
         s = Graph(leaves, subgraph_factors=[1.0, 2.0, 3.0], operator=SUM)
         lowered = lower([s], {leaf.id: i for i, leaf in enumerate(leaves)},
@@ -430,11 +430,11 @@ class TestPrecision:
         """Quantify f32 (TPU) vs f64 error on a real parquet graph
         (SURVEY hard part #4: Prod/Power numerics in reduced precision)."""
         import jax.numpy as jnp
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           Ver4Diag, vertex4)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
-        from feynmandiagram_tpu.backends.compile import leafmap_of
+        from feynmandiagram.computational_graph import optimize_inplace
+        from feynmandiagram.backends.compile import leafmap_of
 
         para = DiagPara(type=Ver4Diag, innerLoopNum=3, hasTau=True,
                         filter=(NoHartree,),
@@ -459,11 +459,11 @@ class TestPrecision:
         level); cancellation-dominated outputs can be off by much more, which
         is why this mode is for fast parameter scans, not final estimates."""
         import jax.numpy as jnp
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           Ver4Diag, vertex4)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
-        from feynmandiagram_tpu.backends.compile import leafmap_of
+        from feynmandiagram.computational_graph import optimize_inplace
+        from feynmandiagram.backends.compile import leafmap_of
 
         para = DiagPara(type=Ver4Diag, innerLoopNum=2, hasTau=True,
                         filter=(NoHartree,),
@@ -516,7 +516,7 @@ class TestCompensatedSummation:
         """A single wide Sum with alternating huge/small terms: plain f32
         loses the small terms entirely; compensated f32 recovers them."""
         import jax.numpy as jnp
-        from feynmandiagram_tpu.computational_graph import Graph
+        from feynmandiagram.computational_graph import Graph
 
         # sum_i (1e6 - 1e6 + 1) repeated: true value = n_triples
         leaves, factors = [], []
@@ -546,11 +546,11 @@ class TestCompensatedSummation:
         """On a real parquet graph, compensated f32 error <= plain f32 error
         (per root, against f64), and modes stay equivalent."""
         import jax.numpy as jnp
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           Ver4Diag, vertex4)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
-        from feynmandiagram_tpu.backends.compile import leafmap_of
+        from feynmandiagram.computational_graph import optimize_inplace
+        from feynmandiagram.backends.compile import leafmap_of
 
         para = DiagPara(type=Ver4Diag, innerLoopNum=3, hasTau=True,
                         filter=(NoHartree,),
@@ -579,7 +579,7 @@ class TestRecommendedBatch:
         (PARITY.md batch scan): largest tile-layout batch (multiple of
         1024) with num_slots * batch * 4 B <= budget, falling back to a
         lane multiple, clamped to [128, 4096]."""
-        from feynmandiagram_tpu.ops.evaluator import recommended_batch
+        from feynmandiagram.ops.evaluator import recommended_batch
 
         class _L:
             def __init__(self, n):
@@ -609,12 +609,12 @@ class TestSchedule:
         1122 vs 1086 slots on this graph, ADVICE r3 — so the assertion is
         deliberately scoped to cse=False.)"""
         import numpy as np
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           Ver4Diag, vertex4)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
-        from feynmandiagram_tpu.ops.lowering import lower
-        from feynmandiagram_tpu.ops.evaluator import make_evaluator
+        from feynmandiagram.computational_graph import optimize_inplace
+        from feynmandiagram.ops.lowering import lower
+        from feynmandiagram.ops.evaluator import make_evaluator
 
         para = DiagPara(type=Ver4Diag, innerLoopNum=3, hasTau=True,
                         filter=(NoHartree,),
@@ -636,12 +636,12 @@ class TestSchedule:
         ASAP/ALAP peak slot counts — including with cse=True, the config
         where ALAP can lose (ADVICE r3) — and produce identical outputs."""
         import numpy as np
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           Ver4Diag, vertex4)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
-        from feynmandiagram_tpu.ops.lowering import lower
-        from feynmandiagram_tpu.ops.evaluator import make_evaluator
+        from feynmandiagram.computational_graph import optimize_inplace
+        from feynmandiagram.ops.lowering import lower
+        from feynmandiagram.ops.evaluator import make_evaluator
 
         para = DiagPara(type=Ver4Diag, innerLoopNum=3, hasTau=True,
                         filter=(NoHartree,),

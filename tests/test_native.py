@@ -5,9 +5,9 @@ import random
 import numpy as np
 import pytest
 
-from feynmandiagram_tpu import native
-from feynmandiagram_tpu.computational_graph import Graph, SUM, PROD
-from feynmandiagram_tpu.ops import lower, make_evaluator
+from feynmandiagram import native
+from feynmandiagram.computational_graph import Graph, SUM, PROD
+from feynmandiagram.ops import lower, make_evaluator
 
 
 def test_native_builds():

@@ -6,7 +6,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
-from feynmandiagram_tpu.ops.kernels import bucket_gather_reduce
+from feynmandiagram.ops.kernels import bucket_gather_reduce
 
 
 @pytest.mark.timeout(300)

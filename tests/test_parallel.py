@@ -5,11 +5,11 @@ import jax
 import numpy as np
 import pytest
 
-from feynmandiagram_tpu.backends.compile import compile_evaluator
-from feynmandiagram_tpu.computational_graph import optimize_inplace
-from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-from feynmandiagram_tpu.frontends.parquet import DiagPara, Interaction, SigmaDiag, sigma
-from feynmandiagram_tpu.parallel import make_sample_mesh, shard_compiled, make_mc_step
+from feynmandiagram.backends.compile import compile_evaluator
+from feynmandiagram.computational_graph import optimize_inplace
+from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+from feynmandiagram.frontends.parquet import DiagPara, Interaction, SigmaDiag, sigma
+from feynmandiagram.parallel import make_sample_mesh, shard_compiled, make_mc_step
 
 BETA, KF, LAM = 0.5, 1.919, 1.0
 
@@ -57,9 +57,9 @@ class TestGraphSharding:
     def test_graph_sharded_matches_single(self):
         """Level-partitioned evaluation across 8 devices equals single-chip."""
         import random
-        from feynmandiagram_tpu.ops import lower, make_evaluator
-        from feynmandiagram_tpu.parallel.graph_shard import make_graph_sharded_evaluator
-        from feynmandiagram_tpu.computational_graph import Graph
+        from feynmandiagram.ops import lower, make_evaluator
+        from feynmandiagram.parallel.graph_shard import make_graph_sharded_evaluator
+        from feynmandiagram.computational_graph import Graph
         import sys, os
         sys.path.insert(0, os.path.dirname(__file__))
         from test_lowering import random_dag
@@ -80,14 +80,14 @@ class TestGraphSharding:
         np.testing.assert_allclose(multi, single, rtol=1e-10, atol=1e-12)
 
     def test_graph_sharded_parquet_sigma(self):
-        from feynmandiagram_tpu.ops import lower, make_evaluator
-        from feynmandiagram_tpu.parallel.graph_shard import make_graph_sharded_evaluator
-        from feynmandiagram_tpu.backends.compile import leafmap_of
+        from feynmandiagram.ops import lower, make_evaluator
+        from feynmandiagram.parallel.graph_shard import make_graph_sharded_evaluator
+        from feynmandiagram.backends.compile import leafmap_of
 
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           SigmaDiag, sigma)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
+        from feynmandiagram.computational_graph import optimize_inplace
         para = DiagPara(type=SigmaDiag, innerLoopNum=2, hasTau=True,
                         filter=(NoHartree,),
                         interaction=(Interaction(ChargeCharge, Instant),))
@@ -102,7 +102,7 @@ class TestGraphSharding:
         rng = np.random.default_rng(9)
         n_leaf = lowered.num_leaves - len(lowered.const_slots)
         vals = rng.uniform(0.5, 1.5, (n_leaf, 8))
-        from feynmandiagram_tpu.ops import make_evaluator
+        from feynmandiagram.ops import make_evaluator
         single = np.asarray(make_evaluator(lowered)(vals))
         mesh = make_sample_mesh(4, axis_name="graph")
         multi = np.asarray(make_graph_sharded_evaluator(lowered, mesh)(vals))
@@ -110,14 +110,14 @@ class TestGraphSharding:
 
     def test_graph_sharded_fused_matches_single(self):
         """Memory-partitioned sharding of the production fused mode."""
-        from feynmandiagram_tpu.ops import lower, make_evaluator
-        from feynmandiagram_tpu.parallel.graph_shard import make_graph_sharded_evaluator
-        from feynmandiagram_tpu.backends.compile import leafmap_of
+        from feynmandiagram.ops import lower, make_evaluator
+        from feynmandiagram.parallel.graph_shard import make_graph_sharded_evaluator
+        from feynmandiagram.backends.compile import leafmap_of
 
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           SigmaDiag, sigma)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
+        from feynmandiagram.computational_graph import optimize_inplace
         para = DiagPara(type=SigmaDiag, innerLoopNum=3, hasTau=True,
                         filter=(NoHartree,),
                         interaction=(Interaction(ChargeCharge, Instant),))
@@ -152,13 +152,13 @@ class TestGraphSharding:
         every (local_reuse, interleave) combination must equal single-chip,
         reuse must shrink the per-device buffer toward live_slots/n, and
         the auto-pick must choose the lower-traffic ownership."""
-        from feynmandiagram_tpu.ops import lower, make_evaluator
-        from feynmandiagram_tpu.parallel.graph_shard import make_graph_sharded_evaluator
-        from feynmandiagram_tpu.backends.compile import leafmap_of
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.ops import lower, make_evaluator
+        from feynmandiagram.parallel.graph_shard import make_graph_sharded_evaluator
+        from feynmandiagram.backends.compile import leafmap_of
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           Ver4Diag, vertex4)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
+        from feynmandiagram.computational_graph import optimize_inplace
         para = DiagPara(type=Ver4Diag, innerLoopNum=3, hasTau=True,
                         filter=(NoHartree,),
                         interaction=(Interaction(ChargeCharge, Instant),))
@@ -196,11 +196,11 @@ class TestGraphSharding:
     def test_graph_sharded_reuse_slots_rejected(self):
         """Slot recycling breaks single-assignment ownership: must raise."""
         import pytest
-        from feynmandiagram_tpu.ops import lower
-        from feynmandiagram_tpu.parallel.graph_shard import make_graph_sharded_evaluator
-        from feynmandiagram_tpu.backends.compile import leafmap_of
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.ops import lower
+        from feynmandiagram.parallel.graph_shard import make_graph_sharded_evaluator
+        from feynmandiagram.backends.compile import leafmap_of
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           SigmaDiag, sigma)
         para = DiagPara(type=SigmaDiag, innerLoopNum=2, hasTau=True,
                         filter=(NoHartree,),
@@ -219,13 +219,13 @@ class TestGraphSharding:
         form (the sharded analog of ops.evaluator._eval_levels_tile); must
         equal the flat sharded layout and single chip."""
         import jax.numpy as jnp
-        from feynmandiagram_tpu.ops import lower, make_evaluator
-        from feynmandiagram_tpu.parallel.graph_shard import make_graph_sharded_evaluator
-        from feynmandiagram_tpu.backends.compile import leafmap_of
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.ops import lower, make_evaluator
+        from feynmandiagram.parallel.graph_shard import make_graph_sharded_evaluator
+        from feynmandiagram.backends.compile import leafmap_of
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           SigmaDiag, sigma)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
+        from feynmandiagram.computational_graph import optimize_inplace
         para = DiagPara(type=SigmaDiag, innerLoopNum=2, hasTau=True,
                         filter=(NoHartree,),
                         interaction=(Interaction(ChargeCharge, Instant),))
@@ -253,15 +253,15 @@ class TestGraphSharding:
         the single-chip estimator with the same PRNG schedule exactly."""
         import jax.numpy as jnp
         from jax.sharding import Mesh
-        from feynmandiagram_tpu.ops import lower, make_evaluator
-        from feynmandiagram_tpu.ops.leaf_eval import (leaf_tables_from_lowered,
+        from feynmandiagram.ops import lower, make_evaluator
+        from feynmandiagram.ops.leaf_eval import (leaf_tables_from_lowered,
                                                       make_leaf_evaluator)
-        from feynmandiagram_tpu.parallel.graph_shard import make_graph_sharded_mc_step
-        from feynmandiagram_tpu.backends.compile import leafmap_of, leaf_graphs_of
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.parallel.graph_shard import make_graph_sharded_mc_step
+        from feynmandiagram.backends.compile import leafmap_of, leaf_graphs_of
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           Ver4Diag, vertex4)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
+        from feynmandiagram.computational_graph import optimize_inplace
 
         para = DiagPara(type=Ver4Diag, innerLoopNum=2, hasTau=True,
                         filter=(NoHartree,),
@@ -307,14 +307,14 @@ class TestGraphSharding:
         has the fewest per-device slots (halo rows break ties) — the
         generate-once selection certify_sharded.py and the config-5
         example rely on (round 5; ALAP wins orders 3-4, ASAP wins 5-6)."""
-        from feynmandiagram_tpu.ops import lower
-        from feynmandiagram_tpu.parallel.graph_shard import (
+        from feynmandiagram.ops import lower
+        from feynmandiagram.parallel.graph_shard import (
             _resolve_plan, lower_sharded_best)
-        from feynmandiagram_tpu.backends.compile import leafmap_of
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.backends.compile import leafmap_of
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           Ver4Diag, vertex4)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
+        from feynmandiagram.computational_graph import optimize_inplace
 
         para = DiagPara(type=Ver4Diag, innerLoopNum=3, hasTau=True,
                         filter=(NoHartree,),
@@ -343,15 +343,15 @@ class TestGraphSharding:
         benchmarks/certify_sharded.py; the anchor is BASELINE config 5's
         'order-6 ver4 across hosts' wording.)"""
         from jax.sharding import Mesh
-        from feynmandiagram_tpu.ops import lower, make_evaluator
-        from feynmandiagram_tpu.ops.leaf_eval import (leaf_tables_from_lowered,
+        from feynmandiagram.ops import lower, make_evaluator
+        from feynmandiagram.ops.leaf_eval import (leaf_tables_from_lowered,
                                                       make_leaf_evaluator)
-        from feynmandiagram_tpu.parallel.graph_shard import make_graph_sharded_mc_step
-        from feynmandiagram_tpu.backends.compile import leafmap_of, leaf_graphs_of
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.parallel.graph_shard import make_graph_sharded_mc_step
+        from feynmandiagram.backends.compile import leafmap_of, leaf_graphs_of
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           Ver4Diag, vertex4)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
+        from feynmandiagram.computational_graph import optimize_inplace
 
         para = DiagPara(type=Ver4Diag, innerLoopNum=5, hasTau=True,
                         filter=(NoHartree,),
@@ -393,13 +393,13 @@ class TestGraphSharding:
     def test_graph_sharded_2d_mesh(self):
         """2-D (graph x batch) mesh: slot partition + sample sharding."""
         from jax.sharding import Mesh
-        from feynmandiagram_tpu.ops import lower, make_evaluator
-        from feynmandiagram_tpu.parallel.graph_shard import make_graph_sharded_evaluator
-        from feynmandiagram_tpu.backends.compile import leafmap_of
-        from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree
-        from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+        from feynmandiagram.ops import lower, make_evaluator
+        from feynmandiagram.parallel.graph_shard import make_graph_sharded_evaluator
+        from feynmandiagram.backends.compile import leafmap_of
+        from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+        from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                           SigmaDiag, sigma)
-        from feynmandiagram_tpu.computational_graph import optimize_inplace
+        from feynmandiagram.computational_graph import optimize_inplace
         para = DiagPara(type=SigmaDiag, innerLoopNum=2, hasTau=True,
                         filter=(NoHartree,),
                         interaction=(Interaction(ChargeCharge, Instant),))

@@ -7,16 +7,16 @@ counts of arXiv:cond-mat/0512342.
 import numpy as np
 import pytest
 
-from feynmandiagram_tpu.computational_graph import eval_graph
-from feynmandiagram_tpu.frontends import (Filter, NoHartree, NoFock, Girreducible,
+from feynmandiagram.computational_graph import eval_graph
+from feynmandiagram.frontends import (Filter, NoHartree, NoFock, Girreducible,
                                           Proper, ChargeCharge, Instant, UpUp)
-from feynmandiagram_tpu.frontends.parquet import (
+from feynmandiagram.frontends.parquet import (
     DiagPara, Interaction, ParquetBlocks, SigmaDiag, GreenDiag, PolarDiag,
     Ver3Diag, Ver4Diag, ordered_partition, find_first_loop_idx,
     find_first_tau_idx, sigma, green, vertex3, polarization, mergeby,
     is_valid_g, is_valid_sigma, benchmark,
 )
-from feynmandiagram_tpu.ops import evaluate_graphs, lower, make_evaluator
+from feynmandiagram.ops import evaluate_graphs, lower, make_evaluator
 
 
 class TestBookkeeping:
@@ -65,7 +65,7 @@ class TestSigmaCounts:
     @pytest.mark.parametrize("l", [1, 2, 3, 4])
     def test_sigma_G2v(self, l):
         if l >= 4:  # order-4 needs the fully-irreducible vertex tables
-            from feynmandiagram_tpu.frontends.parquet.vertex4 import (
+            from feynmandiagram.frontends.parquet.vertex4 import (
                 initialize_vertex4I_diags, get_ver4I)
             if not get_ver4I():
                 initialize_vertex4I_diags()
@@ -172,7 +172,7 @@ class TestPolarizationCounts:
 
 class TestSigmaGVAndEpCoupling:
     def test_sigma_gv_runs(self):
-        from feynmandiagram_tpu.frontends.parquet import sigmaGV
+        from feynmandiagram.frontends.parquet import sigmaGV
         para = DiagPara(type=SigmaDiag, innerLoopNum=1, hasTau=True,
                         filter=(NoHartree,),
                         interaction=(Interaction(ChargeCharge, Instant),))
@@ -185,8 +185,8 @@ class TestSigmaGVAndEpCoupling:
 
     def test_ep_coupling_runs(self):
         import warnings
-        from feynmandiagram_tpu.frontends.parquet import ep_coupling
-        from feynmandiagram_tpu.frontends import Dynamic
+        from feynmandiagram.frontends.parquet import ep_coupling
+        from feynmandiagram.frontends import Dynamic
         para = DiagPara(type=Ver4Diag, hasTau=True, innerLoopNum=2,
                         interaction=(Interaction(ChargeCharge, [Instant, Dynamic]),))
         with warnings.catch_warnings():
@@ -201,9 +201,9 @@ class TestADCrossValidation:
     def test_taylor_first_order_equals_forward_ad_sum(self):
         """taylorAD's (1,) coefficient with coefficient-leaves == 1 equals the
         sum of forward-AD derivatives over all dependent leaves."""
-        from feynmandiagram_tpu.frontends import BareGreenId
-        from feynmandiagram_tpu.utility import taylorAD
-        from feynmandiagram_tpu.computational_graph import forward_ad
+        from feynmandiagram.frontends import BareGreenId
+        from feynmandiagram.utility import taylorAD
+        from feynmandiagram.computational_graph import forward_ad
 
         para = DiagPara(type=SigmaDiag, innerLoopNum=2, hasTau=True,
                         filter=(NoHartree,),
@@ -257,9 +257,9 @@ class TestSigmaGVCrossCheck:
 
     @pytest.mark.parametrize("l", [1, 2])
     def test_instant_rows_agree(self, l):
-        from feynmandiagram_tpu.frontends.parquet import sigmaGV
-        from feynmandiagram_tpu.backends.compile import compile_evaluator
-        from feynmandiagram_tpu.frontends import Instant as InstantProp
+        from feynmandiagram.frontends.parquet import sigmaGV
+        from feynmandiagram.backends.compile import compile_evaluator
+        from feynmandiagram.frontends import Instant as InstantProp
 
         para = DiagPara(type=SigmaDiag, innerLoopNum=l, hasTau=True,
                         filter=(NoHartree,),
@@ -299,8 +299,8 @@ class TestEpCouplingValues:
         Order 2 = 64 = (-8)^2 remains a pinned regression anchor (the
         reference ships no ep_coupling value tests at all)."""
         import warnings
-        from feynmandiagram_tpu.frontends.parquet import ep_coupling
-        from feynmandiagram_tpu.frontends import Dynamic
+        from feynmandiagram.frontends.parquet import ep_coupling
+        from feynmandiagram.frontends import Dynamic
         expected = {1: -8.0, 2: 64.0}
         for l, want in expected.items():
             para = DiagPara(type=Ver4Diag, hasTau=True, innerLoopNum=l,

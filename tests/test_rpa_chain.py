@@ -3,12 +3,12 @@ with all leaves == 1, the RPA chain telescopes to an analytic value."""
 import numpy as np
 import pytest
 
-from feynmandiagram_tpu.computational_graph import eval_graph
-from feynmandiagram_tpu.frontends import ChargeCharge, Instant, Dynamic, PHr, PHEr
-from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction, Ver4Diag,
+from feynmandiagram.computational_graph import eval_graph
+from feynmandiagram.frontends import ChargeCharge, Instant, Dynamic, PHr, PHEr
+from feynmandiagram.frontends.parquet import (DiagPara, Interaction, Ver4Diag,
                                                   mergeby)
-from feynmandiagram_tpu.frontends.parquet.common import get_k
-from feynmandiagram_tpu.frontends.parquet.vertex4 import rpa_chain
+from feynmandiagram.frontends.parquet.common import get_k
+from feynmandiagram.frontends.parquet.vertex4 import rpa_chain
 
 
 def _make_para(loopnum):

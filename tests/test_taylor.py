@@ -4,14 +4,14 @@ import math
 import numpy as np
 import pytest
 
-from feynmandiagram_tpu.computational_graph import (Graph, PROD, SUM, eval_graph,
+from feynmandiagram.computational_graph import (Graph, PROD, SUM, eval_graph,
                                                     optimize_inplace)
-from feynmandiagram_tpu.frontends import (BareGreenId, BareInteractionId,
+from feynmandiagram.frontends import (BareGreenId, BareInteractionId,
                                           ChargeCharge, GenericId)
-from feynmandiagram_tpu.frontends.parquet import DiagPara, GreenDiag
-from feynmandiagram_tpu.taylor import (TaylorSeries, set_variables, get_numvars,
+from feynmandiagram.frontends.parquet import DiagPara, GreenDiag
+from feynmandiagram.taylor import (TaylorSeries, set_variables, get_numvars,
                                        taylor_factorial, taylor_binomial)
-from feynmandiagram_tpu.utility import (taylorexpansion, taylorexpansion_graphs,
+from feynmandiagram.utility import (taylorexpansion, taylorexpansion_graphs,
                                         taylorexpansion_by_leaftype, taylorAD)
 
 
@@ -162,7 +162,7 @@ class TestBenchmarkAD:
         return eval_graph(graph, leafmap, vals)
 
     def test_matches_taylorexpansion(self):
-        from feynmandiagram_tpu.utility import (build_derivative_backAD,
+        from feynmandiagram.utility import (build_derivative_backAD,
                                                 taylorexpansion)
 
         set_variables("x y", orders=[2, 2])
@@ -183,8 +183,8 @@ class TestBenchmarkAD:
             assert got == pytest.approx(want, rel=1e-12), o
 
     def test_power_operator(self):
-        from feynmandiagram_tpu.computational_graph import Power
-        from feynmandiagram_tpu.utility import (build_derivative_backAD,
+        from feynmandiagram.computational_graph import Power
+        from feynmandiagram.utility import (build_derivative_backAD,
                                                 taylorexpansion)
 
         set_variables("x", orders=[3])
@@ -201,7 +201,7 @@ class TestBenchmarkAD:
 
 class TestDisplayAndMetrics:
     def test_pretty_print_numeric(self):
-        from feynmandiagram_tpu.taylor import pretty_print
+        from feynmandiagram.taylor import pretty_print
         x, y = set_variables("x y", orders=[2, 2])
         F = (1 + x) * (3 + 2 * y)
         s = pretty_print(F, big_o=False)
@@ -209,17 +209,17 @@ class TestDisplayAndMetrics:
         assert "𝒪" in str(F)
 
     def test_pretty_print_graph_coeffs(self):
-        from feynmandiagram_tpu.taylor import pretty_print
+        from feynmandiagram.taylor import pretty_print
         set_variables("x", orders=[1])
         l1 = Graph([], properties=("leaf", 1))
-        series, _ = __import__("feynmandiagram_tpu.utility", fromlist=["taylorexpansion"]).taylorexpansion(
+        series, _ = __import__("feynmandiagram.utility", fromlist=["taylorexpansion"]).taylorexpansion(
             l1, {l1.id: [True]})
         s = pretty_print(series, big_o=False)
         assert "g" in s and " x" in s
 
     def test_count_operation_series(self):
-        from feynmandiagram_tpu.computational_graph import count_operation
-        from feynmandiagram_tpu.utility import taylorexpansion
+        from feynmandiagram.computational_graph import count_operation
+        from feynmandiagram.utility import taylorexpansion
         set_variables("x", orders=[2])
         l1 = Graph([], properties=("leaf", 1))
         l2 = Graph([], properties=("leaf", 2))
@@ -237,7 +237,7 @@ class TestContextIsolation:
     each other's variable registries or vertex4I tables."""
 
     def test_taylor_context_restores(self):
-        from feynmandiagram_tpu.taylor import (get_numvars, get_orders,
+        from feynmandiagram.taylor import (get_numvars, get_orders,
                                                set_variables, taylor_context)
         set_variables("u v w", orders=[1, 2, 3])
         with taylor_context("x", orders=[5]) as (x,):
@@ -248,9 +248,9 @@ class TestContextIsolation:
         assert get_orders() == [1, 2, 3]
 
     def test_taylorad_does_not_clobber_registry(self):
-        from feynmandiagram_tpu.taylor import get_orders, set_variables
-        from feynmandiagram_tpu.utility import taylorAD
-        from feynmandiagram_tpu.computational_graph import Graph
+        from feynmandiagram.taylor import get_orders, set_variables
+        from feynmandiagram.utility import taylorAD
+        from feynmandiagram.computational_graph import Graph
 
         set_variables("a b", orders=[4, 4])
         leaf = Graph([], properties=("g", 1))
@@ -258,9 +258,9 @@ class TestContextIsolation:
         assert get_orders() == [4, 4]
 
     def test_vertex4I_cache_keyed_by_config(self):
-        from feynmandiagram_tpu.frontends.parquet.vertex4 import (
+        from feynmandiagram.frontends.parquet.vertex4 import (
             _ver4I_key, get_ver4I)
-        from feynmandiagram_tpu.frontends import NoHartree, Proper
+        from feynmandiagram.frontends import NoHartree, Proper
 
         assert _ver4I_key(None, 0.0) == _ver4I_key([NoHartree], 0.0)
         assert _ver4I_key([NoHartree], 0.0) != _ver4I_key([NoHartree, Proper], 0.0)

@@ -10,14 +10,14 @@ here.)
 import numpy as np
 import pytest
 
-from feynmandiagram_tpu.computational_graph import eval_graph, optimize
-from feynmandiagram_tpu.frontends import (BareGreenId, BareInteractionId,
+from feynmandiagram.computational_graph import eval_graph, optimize
+from feynmandiagram.frontends import (BareGreenId, BareInteractionId,
                                           ChargeCharge, Girreducible, Instant,
                                           NoHartree, PHEr, PHr, PPr, UpDown, UpUp)
-from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,
+from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                   ParquetBlocks, Ver4Diag,
                                                   mergeby, vertex4)
-from feynmandiagram_tpu.frontends.parquet.benchmark.vertex4_oracle import (
+from feynmandiagram.frontends.parquet.benchmark.vertex4_oracle import (
     I, S, T, U, Ver4, eval_ver4)
 
 KF, BETA, MASS2 = 1.0, 1.0, 1.0
