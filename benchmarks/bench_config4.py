@@ -7,7 +7,7 @@ one jit), the same measurement protocol as bench.py.  Reference anchor for
 the workload: /root/reference/src/utility.jl:48-93 (taylorAD) driving the
 MC pipeline of /root/reference/example/benchmark.jl:39-87.
 
-Prints one JSON line; run on the TPU chip (no conftest platform forcing).
+Prints one JSON line naming the device; runs on an NVIDIA GPU only.
 
 Usage: python benchmarks/bench_config4.py [batch] [iters]
 """
@@ -33,10 +33,13 @@ def main():
     from feynmandiagram.computational_graph import optimize_inplace
     from feynmandiagram.utility import taylorAD
     from feynmandiagram.backends.compile import compile_evaluator
-    from feynmandiagram.ops.evaluator import recommended_batch
+    from feynmandiagram.utils.device import (enable_compile_cache,
+                                             gpu_name_and_power_limit,
+                                             require_gpu_or_exit)
 
-    on_tpu = jax.devices()[0].platform != "cpu"
-    dtype = jnp.float32 if on_tpu else jnp.float64
+    devices = require_gpu_or_exit("bench_config4")
+    enable_compile_cache()
+    dtype = jnp.float32
 
     t0 = time.time()
     para = DiagPara(type=SigmaDiag, innerLoopNum=4, hasTau=True,
@@ -56,8 +59,8 @@ def main():
     compiled = compile_evaluator(all_roots, max_loop_num=para.totalLoopNum,
                                  beta=0.5, kF=1.919, lam=1.0, dtype=dtype)
     low = compiled.lowered
-    rec = recommended_batch(low)
-    batch = int(sys.argv[1]) if len(sys.argv) > 1 else rec
+    # a fixed batch, not yet tuned on the GPU (ROADMAP A5)
+    batch = int(sys.argv[1]) if len(sys.argv) > 1 else 2048
     iters = int(sys.argv[2]) if len(sys.argv) > 2 else 200
     num_tau = para.totalTauNum
 
@@ -69,17 +72,18 @@ def main():
                            iters=iters, beta=0.5)
     print(json.dumps({
         "metric": "mc_samples_per_s_config4_sigma_ct22",
-        "value": round(sps, 1),
+        "value": sps,
         "unit": "samples/s/chip",
+        "device": {"platform": devices[0].platform,
+                   "kind": devices[0].device_kind, "count": len(devices)},
+        "card": gpu_name_and_power_limit(),
         "extra": {
-            "host_gen_ad_s": round(t_host, 2),
-            "edges_per_s": round(low.num_edges * sps, 0),
+            "host_gen_ad_s": t_host,
+            "edges_per_s": low.num_edges * sps,
             "batch": batch, "iters": iters,
-            "recommended_batch": rec,
             "num_roots": len(low.root_slots),
             "num_slots": low.num_slots, "num_edges": low.num_edges,
             "num_levels": low.num_levels,
-            "platform": jax.devices()[0].platform,
         },
     }))
 

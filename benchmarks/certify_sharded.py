@@ -6,12 +6,11 @@ ownership) -> memory-partitioned sharded evaluation on an n-device mesh —
 asserting the sharded result equals the single-chip evaluator and printing
 the planner's memory/halo footprint as one JSON line.
 
-On this container the mesh is the virtual 8-device CPU mesh (real
-collectives, no multi-chip hardware): the certification covers planning,
-memory partitioning, halo exchange, and bit-level equality; wall-clock is
-not a hardware measurement (PARITY.md Scaling note).
+The mesh is a virtual n-device CPU mesh (real collectives, no GPU): the
+certification covers planning, memory partitioning, halo exchange, and
+bit-level equality; its wall-clock is not a device measurement.
 
-Usage: [FDTPU_CERT_ORDER=6] [FDTPU_CERT_NDEV=8] [FDTPU_CERT_BATCH=4]
+Usage: [FD_CERT_ORDER=6] [FD_CERT_NDEV=8] [FD_CERT_BATCH=4]
        python benchmarks/certify_sharded.py
 """
 import json
@@ -27,7 +26,7 @@ flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
         flags + " --xla_force_host_platform_device_count="
-        + os.environ.get("FDTPU_CERT_NDEV", "8")).strip()
+        + os.environ.get("FD_CERT_NDEV", "8")).strip()
 
 import numpy as np
 
@@ -36,6 +35,10 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
+
+    from feynmandiagram.utils.device import enable_compile_cache
+
+    enable_compile_cache()
 
     from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
     from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
@@ -46,9 +49,9 @@ def main():
     from feynmandiagram.parallel import make_sample_mesh
     from feynmandiagram.parallel.graph_shard import make_graph_sharded_evaluator
 
-    order = int(os.environ.get("FDTPU_CERT_ORDER", 5))
-    n_dev = int(os.environ.get("FDTPU_CERT_NDEV", 8))
-    batch = int(os.environ.get("FDTPU_CERT_BATCH", 4))
+    order = int(os.environ.get("FD_CERT_ORDER", 5))
+    n_dev = int(os.environ.get("FD_CERT_NDEV", 8))
+    batch = int(os.environ.get("FD_CERT_BATCH", 4))
 
     t0 = time.time()
     para = DiagPara(type=Ver4Diag, innerLoopNum=order, hasTau=True,

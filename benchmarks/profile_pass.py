@@ -1,19 +1,31 @@
-"""Per-phase device-time attribution of the production MC pass (VERDICT r3 #1).
+"""Per-phase device-time attribution of the production MC pass.
 
 Runs the default bench configuration (order-4 Gamma4, fused lowering, the
-on-device MC loop at batch 1536) under ``jax.profiler.trace`` and aggregates
-the device-side XLA-op durations by pipeline phase, using the named-scope
-metadata the evaluator and leaf kernels emit (``tf_op`` in the trace):
+on-device MC loop of ``benchmarks/_mc_bench.py`` at batch 2048, f32) under
+``jax.profiler.trace`` on an NVIDIA GPU and aggregates the durations of the
+GPU device plane's events by pipeline phase.
+
+A GPU trace names each kernel or copy by its HLO instruction (``hlo_op``;
+kernels replayed from a CUDA graph carry ``hlo_op == "command_buffer"`` and
+the instruction's name, dots turned to underscores, as the event name).
+The compiled module's HLO text maps each instruction to the ``op_name``
+metadata that the named scopes of the evaluator, leaf kernels and MC loop
+write:
 
 - prng      : per-iteration threefry sampling (vk, vt)
 - loops     : LoopPool matmul + |q|^2
-- leafG*/V* : physics kernels per (type, derivative order)
-- gLNN/...  : graph-eval level NN, by bucket shape
+- leaf      : physics kernels per (type, derivative order), ``leafG*/V*``
+- graph     : graph-eval level NN (``gLNN``), by bucket shape
 - accum     : root accumulation
-- other     : copies, infeed, anything unattributed
+- other     : copies, loop control, anything unattributed
 
-Usage: python benchmarks/profile_pass.py [order] [batch] [iters]
-Writes the aggregate table to stdout; per-level detail with --levels.
+It also reports the device idle share of the traced window: one minus the
+union of the module's event intervals over the span from its first event's
+start to its last event's end.
+
+Usage: python benchmarks/profile_pass.py [order] [batch] [iters] [--levels]
+Writes the aggregate table to stdout; per-level detail with --levels.  The
+trace is kept under ``$TMPDIR``; its directory is printed.
 """
 import glob
 import gzip
@@ -27,46 +39,10 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from _mc_bench import make_mc_chunk  # noqa: E402
 
-def build_mc_chunk(order: int, batch: int, iters: int):
-    import jax
-    import jax.numpy as jnp
-
-    from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
-    from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
-                                                      Ver4Diag, vertex4)
-    from feynmandiagram.computational_graph import optimize_inplace
-    from feynmandiagram.backends.compile import compile_evaluator
-
-    on_tpu = jax.devices()[0].platform != "cpu"
-    dtype = jnp.float32 if on_tpu else jnp.float64
-    para = DiagPara(type=Ver4Diag, innerLoopNum=order, hasTau=True,
-                    filter=(NoHartree,),
-                    interaction=(Interaction(ChargeCharge, Instant),))
-    df = vertex4(para)
-    roots = [row["diagram"] for row in df]
-    optimize_inplace(roots, level=1)
-    compiled = compile_evaluator(roots, max_loop_num=para.totalLoopNum,
-                                 beta=0.5, kF=1.919, lam=1.0, dtype=dtype)
-    num_tau = para.totalTauNum
-
-    @jax.jit
-    def mc_chunk(key):
-        def body(i, acc):
-            with jax.named_scope("prng"):
-                k1, k2 = jax.random.split(jax.random.fold_in(key, i))
-                vk = jax.random.normal(k1, (3, para.totalLoopNum, batch), dtype)
-                vt = jax.random.uniform(k2, (num_tau, batch), dtype) * 0.5
-            roots_v = compiled.fn(vk, vt)
-            with jax.named_scope("accum"):
-                return acc + jnp.sum(roots_v, axis=1)
-
-        return jax.lax.fori_loop(0, iters, body, jnp.zeros(
-            (len(compiled.lowered.root_slots),), dtype))
-
-    return mc_chunk, compiled
-
-
+MODULE = "jit_mc_chunk"
+PHASES = ["prng", "loops", "leaf", "graph", "accum", "other"]
 PHASE_RES = [
     ("prng", re.compile(r"/prng/")),
     ("loops", re.compile(r"/loops/")),
@@ -76,94 +52,164 @@ PHASE_RES = [
 ]
 LEVEL_RE = re.compile(r"/(gL\d+)/(?:([a-z]+[\dx]*)/)?")
 LEAF_RE = re.compile(r"/(leaf[GV]\d+)/")
+HLO_LINE_RE = re.compile(
+    r'^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=.*?metadata=\{[^}]*?op_name="([^"]*)"',
+    re.M)
+
+
+def build_mc_chunk(order: int, batch: int, iters: int):
+    import jax.numpy as jnp
+
+    from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
+    from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
+                                                  Ver4Diag, vertex4)
+    from feynmandiagram.computational_graph import optimize_inplace
+    from feynmandiagram.backends.compile import compile_evaluator
+
+    dtype = jnp.float32
+    para = DiagPara(type=Ver4Diag, innerLoopNum=order, hasTau=True,
+                    filter=(NoHartree,),
+                    interaction=(Interaction(ChargeCharge, Instant),))
+    df = vertex4(para)
+    roots = [row["diagram"] for row in df]
+    optimize_inplace(roots, level=1)
+    compiled = compile_evaluator(roots, max_loop_num=para.totalLoopNum,
+                                 beta=0.5, kF=1.919, lam=1.0, dtype=dtype)
+    # the bench protocol's own MC loop (benchmarks/_mc_bench.py)
+    mc_chunk = make_mc_chunk(compiled.fn, n_loop=para.totalLoopNum,
+                             num_tau=para.totalTauNum, batch=batch,
+                             n_roots=len(compiled.lowered.root_slots),
+                             dtype=dtype, iters=iters, beta=0.5)
+    return mc_chunk, compiled
+
+
+def device_events(trace: dict, module: str = MODULE):
+    """Complete events of the GPU device planes (processes named
+    ``/device:GPU:<n>``, every stream) that belong to HLO ``module``."""
+    ev = trace["traceEvents"]
+    dev_pids = {e["pid"] for e in ev if e.get("ph") == "M"
+                and e.get("name") == "process_name"
+                and e["args"].get("name", "").startswith("/device:GPU:")}
+    return [e for e in ev if e.get("ph") == "X" and e.get("pid") in dev_pids
+            and e.get("args", {}).get("hlo_module") == module]
+
+
+def hlo_op_names(hlo_text: str) -> dict:
+    """HLO instruction name -> ``op_name`` metadata (named-scope path)."""
+    return dict(HLO_LINE_RE.findall(hlo_text))
+
+
+def event_op_name(e: dict, op_names: dict) -> str:
+    """The named-scope path of the instruction a device event ran."""
+    inst = e.get("args", {}).get("hlo_op", "")
+    if inst not in op_names:
+        # a kernel replayed from a command buffer: its own name is the
+        # instruction's, with the last '.' written as '_'
+        inst = re.sub(r"_(\d+)$", r".\1", e.get("name", ""))
+    return op_names.get(inst, "")
+
+
+def attribute(events, op_names: dict):
+    """Sum event durations (us) and counts by phase, by level/bucket or leaf
+    group, and by event name for the unattributed rest."""
+    by_phase = defaultdict(lambda: [0.0, 0])
+    by_level = defaultdict(lambda: [0.0, 0])
+    by_op = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        path = event_op_name(e, op_names)
+        dur = e.get("dur", 0.0)
+        phase = next((n for n, rx in PHASE_RES if rx.search(path)), "other")
+        by_phase[phase][0] += dur
+        by_phase[phase][1] += 1
+        if phase == "other":
+            k = e.get("name", "?")
+            by_op[k][0] += dur
+            by_op[k][1] += 1
+        m = LEVEL_RE.search(path) or LEAF_RE.search(path)
+        if m:
+            key = "/".join(g for g in m.groups() if g)
+            by_level[key][0] += dur
+            by_level[key][1] += 1
+    return by_phase, by_level, by_op
+
+
+def idle_share(events) -> float:
+    """1 - (union of event intervals) / (first start .. last end)."""
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0.0)) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, t in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, t
+        else:
+            cur_e = max(cur_e, t)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0] if spans else 0.0
+    return 1.0 - busy / window if window > 0 else 0.0
 
 
 def collect_trace(trace_dir: str):
-    """Parse the newest trace.json.gz: device XLA-op events only."""
+    """Device events of the newest ``*.trace.json.gz`` under ``trace_dir``."""
     paths = sorted(glob.glob(os.path.join(trace_dir, "**/*.trace.json.gz"),
                              recursive=True))
     with gzip.open(paths[-1]) as fh:
-        d = json.load(fh)
-    ev = d["traceEvents"]
-    # find the device pid and its "XLA Ops" tid
-    dev_pids = {e["pid"] for e in ev if e.get("ph") == "M"
-                and e.get("name") == "process_name"
-                and "TPU" in e["args"].get("name", "")}
-    op_tids = {(e["pid"], e["tid"]) for e in ev if e.get("ph") == "M"
-               and e.get("name") == "thread_name"
-               and e["args"].get("name") == "XLA Ops"
-               and e["pid"] in dev_pids}
-    return [e for e in ev if e.get("ph") == "X"
-            and (e.get("pid"), e.get("tid")) in op_tids]
+        return device_events(json.load(fh))
 
 
 def main():
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     show_levels = "--levels" in sys.argv
     order = int(args[0]) if len(args) > 0 else 4
-    batch = int(args[1]) if len(args) > 1 else 1536
+    batch = int(args[1]) if len(args) > 1 else 2048
     iters = int(args[2]) if len(args) > 2 else 20
 
     import jax
 
+    from feynmandiagram.utils.device import (enable_compile_cache,
+                                             require_gpu_or_exit)
+
+    require_gpu_or_exit("profile_pass")
+    enable_compile_cache()
+
     mc_chunk, compiled = build_mc_chunk(order, batch, iters)
     key = jax.random.PRNGKey(0)
     t0 = time.perf_counter()
-    jax.block_until_ready(mc_chunk(key))
+    step = mc_chunk.lower(key).compile()
+    op_names = hlo_op_names(step.as_text())
+    jax.block_until_ready(step(key))
     print(f"# compile+warmup {time.perf_counter() - t0:.1f}s", file=sys.stderr)
     t0 = time.perf_counter()
-    jax.block_until_ready(mc_chunk(jax.random.PRNGKey(1)))
+    jax.block_until_ready(step(jax.random.PRNGKey(1)))
     wall = time.perf_counter() - t0
 
-    trace_dir = tempfile.mkdtemp(prefix="fdtpu_prof_")
+    trace_dir = tempfile.mkdtemp(prefix="fd_prof_")
+    print(f"# trace {trace_dir}", file=sys.stderr)
     with jax.profiler.trace(trace_dir):
-        jax.block_until_ready(mc_chunk(jax.random.PRNGKey(2)))
+        jax.block_until_ready(step(jax.random.PRNGKey(2)))
 
     events = collect_trace(trace_dir)
-    by_phase = defaultdict(lambda: [0.0, 0, 0, 0])   # dur_us, count, bytes, flops
-    by_level = defaultdict(lambda: [0.0, 0])
-    by_op = defaultdict(lambda: [0.0, 0])
-    for e in events:
-        a = e.get("args", {})
-        tf_op = a.get("tf_op", "")
-        dur = e.get("dur", 0.0)
-        phase = "other"
-        for name, rx in PHASE_RES:
-            if rx.search(tf_op):
-                phase = name
-                break
-        rec = by_phase[phase]
-        rec[0] += dur
-        rec[1] += 1
-        rec[2] += int(a.get("raw_bytes_accessed", 0))
-        rec[3] += int(a.get("model_flops", 0) if a.get("model_flops", "") else 0)
-        if phase == "other":
-            k = e.get("name", "?").split(".")[0]
-            by_op[k][0] += dur
-            by_op[k][1] += 1
-        m = LEVEL_RE.search(tf_op) or LEAF_RE.search(tf_op)
-        if m:
-            key_l = "/".join(g for g in m.groups() if g)
-            by_level[key_l][0] += dur
-            by_level[key_l][1] += 1
-
+    if not events:
+        raise SystemExit(f"no GPU events of {MODULE} in the trace under "
+                         f"{trace_dir}")
+    by_phase, by_level, by_op = attribute(events, op_names)
     total_us = sum(v[0] for v in by_phase.values())
     print(f"# order={order} batch={batch} iters={iters} "
           f"slots={compiled.lowered.num_slots} edges={compiled.lowered.num_edges} "
           f"levels={len(compiled.lowered.levels)}")
-    print(f"# wall(untr.) {wall*1e3:.2f} ms total; device-op total "
+    print(f"# wall(untraced) {wall*1e3:.2f} ms; device busy total "
           f"{total_us/1e3:.2f} ms; per pass {total_us/iters:.0f} us "
-          f"({batch*iters/wall:.0f} samples/s untraced)")
-    print(f"{'phase':<8} {'us/pass':>9} {'%':>6} {'ops/pass':>9} "
-          f"{'GB/s':>8} {'GFLOP/s':>9}")
-    for name in ["prng", "loops", "leaf", "graph", "accum", "other"]:
+          f"({batch*iters/wall:.0f} samples/s untraced); "
+          f"{len(events)/iters:.1f} device events per pass; "
+          f"device idle share of the traced window {idle_share(events):.3f}")
+    print(f"{'phase':<8} {'us/pass':>9} {'%':>6} {'ops/pass':>9}")
+    for name in PHASES:
         if name not in by_phase:
             continue
-        dur, cnt, byts, flops = by_phase[name]
-        bw = byts / (dur * 1e-6) / 1e9 if dur else 0
-        fl = flops / (dur * 1e-6) / 1e9 if dur else 0
+        dur, cnt = by_phase[name]
         print(f"{name:<8} {dur/iters:>9.1f} {100*dur/total_us:>5.1f}% "
-              f"{cnt/iters:>9.1f} {bw:>8.1f} {fl:>9.1f}")
+              f"{cnt/iters:>9.1f}")
     if show_levels:
         print("\n# per level/bucket (us/pass):")
         for k in sorted(by_level):

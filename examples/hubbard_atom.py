@@ -1,4 +1,4 @@
-"""Hubbard-atom self-energy: exact vs diagrammatic MC through the TPU pipeline.
+"""Hubbard-atom self-energy: exact vs diagrammatic MC through the device pipeline.
 
 The Hubbard atom (single site, H = U n_up n_down - mu N) has a closed-form
 self-energy, making it an end-to-end physics oracle for the whole framework:
@@ -14,6 +14,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import math
 
+from feynmandiagram.utils.device import enable_compile_cache
 from feynmandiagram.models.hubbard_atom import (exact_sigma,
                                                     sigma_power_series,
                                                     sigma_mc)
@@ -22,6 +23,7 @@ BETA, U = 2.3, 1.0
 
 
 def main():
+    enable_compile_cache()
     coeffs = sigma_power_series(BETA)
     print(f"Hubbard atom, beta={BETA}, U={U}, mu=0, at i*omega_0")
     print(f"closed form  Sigma(i w0) = {exact_sigma(math.pi / BETA, U, BETA):.6f}")

@@ -1,6 +1,6 @@
 """End-to-end MC estimate of the two-loop self-energy (BASELINE config 1).
 
-Parquet generation -> optimize -> fused TPU evaluation of 1e4+ Monte-Carlo
+Parquet generation -> optimize -> fused device evaluation of 1e4+ Monte-Carlo
 samples -> crude importance-free estimator means.  Counterpart of the
 reference example/benchmark.jl driver.
 """
@@ -20,11 +20,13 @@ from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
 from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
                                                   SigmaDiag, sigma)
 from feynmandiagram.parallel import make_sample_mesh, make_mc_step
+from feynmandiagram.utils.device import enable_compile_cache
 
 KF, BETA, LAM = 1.919, 0.5, 1.0
 
 
 def main(batch=10000):
+    enable_compile_cache()
     para = DiagPara(type=SigmaDiag, innerLoopNum=2, hasTau=True,
                     filter=(NoHartree,),
                     interaction=(Interaction(ChargeCharge, Instant),))

@@ -29,6 +29,10 @@ import numpy as np
 
 def main():
     import jax
+
+    from feynmandiagram.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     jax.config.update("jax_enable_x64", True)
 
     from feynmandiagram.models.atom_ed import (hubbard_atom_model,

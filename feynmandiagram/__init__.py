@@ -1,9 +1,9 @@
-"""feynmandiagram — a TPU-native framework for compiling and evaluating
-Feynman-diagram computational graphs.
+"""feynmandiagram — a framework for compiling and evaluating Feynman-diagram
+computational graphs in batched diagrammatic Monte Carlo.
 
 Built from scratch against the capability surface of
-numericalEFT/FeynmanDiagram.jl (reference mounted read-only at
-/root/reference), re-designed TPU-first:
+numericalEFT/FeynmanDiagram.jl, re-designed for batched evaluation on an
+accelerator:
 
 - Front ends (Parquet / GV) generate diagram DAGs on the host
   (``frontends``), exactly reproducing the reference's physics semantics
@@ -13,9 +13,9 @@ numericalEFT/FeynmanDiagram.jl (reference mounted read-only at
   for renormalization counterterms.
 - The backend (``ops``/``backends``) lowers optimized DAGs to flat,
   level-scheduled CSR edge lists and evaluates batches of Monte-Carlo
-  samples as fused segment reductions under ``jax.jit`` on TPU, with Pallas
-  kernels for the hot gather-multiply-segment-sum and sample-axis sharding
-  via ``jax.sharding`` (``parallel``).
+  samples as fused gather-multiply-reduce ops under ``jax.jit`` on the
+  device, with sample-axis and graph-axis sharding via ``jax.sharding``
+  (``parallel``).
 """
 import sys as _sys
 

@@ -1,4 +1,4 @@
-"""Back end: compile optimized graphs into one jitted batched TPU pipeline.
+"""Back end: compile optimized graphs into one jitted batched device pipeline.
 
 The reference compiles the DAG to scalar source code (backend/static.jl) and
 evaluates leaves in a per-sample loop; here ``compile`` fuses the whole
@@ -69,16 +69,11 @@ def compile_evaluator(roots: Sequence[Graph], *, max_loop_num: int,
     - ``varK``: [dim, max_loop_num, batch] loop-momentum samples
     - ``varT``: [num_tau, batch] imaginary-time samples (1-based tau indices
       in the graph ids index into rows of varT)
-    - ``dtype``: device dtype (default: f64 under x64, f32 on TPU)
+    - ``dtype``: device dtype (default: f64 under x64, else f32)
     - ``sum_mode``: lowering strategy (see ``ops.lowering.lower``); the
       default ``'fused'`` (with slot reuse) is the fastest validated mode
     - ``acc_dtype``: widened accumulation dtype of the graph phase
-      (default: ``dtype``).  The bf16-storage mode that lived here through
-      round 3 was removed in round 4: its only demonstrated benefit
-      (VMEM-extending the batch) is superseded by the tile-row layout and
-      graph sharding, it never beat the best f32 configuration at any
-      measured production shape, and its ~1% storage error is unusable for
-      final estimates (PARITY.md).
+      (default: ``dtype``).
     """
     if dtype is None:
         from ..ops.dtypes import default_device_dtype
@@ -105,7 +100,7 @@ def compile_evaluator(roots: Sequence[Graph], *, max_loop_num: int,
 
 # ---------------------------------------------------------------------------
 # artifact export: the serialized flat-IR analog of the .diag/compiled-source
-# checkpoint files (SURVEY §5.4) — generation and TPU evaluation can run in
+# checkpoint files (SURVEY §5.4) — generation and device evaluation can run in
 # different jobs; the artifact alone suffices to evaluate.
 # ---------------------------------------------------------------------------
 

@@ -2,8 +2,8 @@
 
 Parity with the reference Compilers module (backend/static.jl,
 compiler_python.jl): each unique node becomes one assignment in post order,
-leaves load from ``leafVal``, roots store into ``root``.  On TPU these
-exports are for interop/debugging — the production path is the fused jitted
+leaves load from ``leafVal``, roots store into ``root``.  These exports
+are for interop/debugging — the production path is the fused jitted
 evaluator (backends.compile); the Python export emits batched jax/numpy
 source whose batch axis matches the reference's torch backend convention
 (leafVal[:, i] batch indexing).
@@ -145,7 +145,7 @@ def compile_c(graphs: Sequence[Graph], filename: str):
 
 
 def to_stablehlo(graphs: Sequence[Graph], batch: int = 128) -> str:
-    """Dump the lowered fused evaluator as StableHLO text (the TPU-native
+    """Dump the lowered fused evaluator as StableHLO text (the device-side
     analog of a compiled-source export)."""
     import jax
     import jax.numpy as jnp

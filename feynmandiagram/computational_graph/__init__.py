@@ -1,7 +1,7 @@
 """Computational-graph IR: the universal intermediate representation.
 
 Host-side symbolic DAG (generation/optimization/AD) lowered to array form
-for batched TPU evaluation by ``feynmandiagram.ops``.
+for batched device evaluation by ``feynmandiagram.ops``.
 """
 from .operators import (Op, SUM, PROD, UNITARY, Power, decrement_power,
                         unary_istrivial, isassociative)

@@ -1,7 +1,7 @@
 """Interpreted post-order evaluation of a graph (the semantic ground truth).
 
 This is the host-side reference evaluator; the production path lowers graphs
-to array form and evaluates batches on TPU (``feynmandiagram.ops``).  The
+to array form and evaluates batches on the device (``feynmandiagram.ops``).  The
 two must agree to float tolerance on every node — that equivalence is the
 core correctness test of the lowering.
 

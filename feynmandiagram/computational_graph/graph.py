@@ -2,7 +2,7 @@
 
 This is the host-side symbolic IR of the framework: front ends (Parquet / GV)
 emit these graphs, the optimizer and Taylor-mode AD transform them, and the
-TPU backend lowers them to flat, level-scheduled edge lists evaluated as
+device backend lowers them to flat, level-scheduled edge lists evaluated as
 batched segment reductions under ``jax.jit`` (see ``feynmandiagram.ops``).
 
 Semantics mirror the reference ``Graph{F,W}``

@@ -5,7 +5,7 @@ duplicate-node elimination replaces the reference's O(N^2) pairwise
 ``isequiv`` scan with O(N) structural hash-consing — same equivalence
 relation (ignore id/name/weight, children matched as factor-weighted
 multisets), dramatically faster on graphs with 1e5+ nodes, which is the
-regime the TPU lowering targets.
+regime the device lowering targets.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ def optimize_inplace(graphs: Sequence[Graph], *, level: int = 0, verbose: int = 
     # flatten BEFORE hash-consing: chain flattening can turn structurally
     # distinct nodes into equal ones, so running it after dedup would break
     # the identity-only invariant the merge pass relies on (every
-    # isequiv-equal pair is the same object) — ADVICE r3
+    # isequiv-equal pair is the same object)
     flatten_all_chains_inplace(graphs, verbose=verbose)
     if level > 0:
         remove_duplicated_nodes_inplace(graphs, verbose=verbose)

@@ -3,7 +3,7 @@
 Reference: /root/reference/src/computational_graph/tree_properties.jl.
 The [adds, muls] op-count metric is the package's graph "cost model": it
 quantifies optimizer and AD-sharing wins, and doubles as the FLOP estimate
-for the lowered TPU kernels (2 * count * batch per MC evaluation).
+for the lowered device evaluation (2 * count * batch per MC evaluation).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Front-end layer: physics vocabulary, diagram ids, loop pools, and the
-SoA leaf tables consumed by the batched TPU leaf evaluators.
+SoA leaf tables consumed by the batched device leaf evaluators.
 
 Reference: /root/reference/src/frontend/.
 """
@@ -32,7 +32,7 @@ def leafstates(leaf_maps: Sequence[Dict[int, "Graph"]], maxloop_num: int):
     leaf_loop_index), loop_basis`` where ``loop_basis`` is the deduplicated
     momentum basis shared by all partitions.
 
-    These tables are exactly what the TPU leaf kernels consume: momenta come
+    These tables are exactly what the device leaf kernels consume: momenta come
     from one ``varK @ loop_basis`` matmul, then vectorized G/V kernels gather
     (in_tau, out_tau, loop_index) per leaf.  Reference: frontends.jl:178-232.
     """

@@ -8,7 +8,7 @@ from __future__ import annotations
 import os
 from typing import List, Optional
 
-_TABLE_PATH: Optional[str] = os.environ.get("FDTPU_GV_TABLES")
+_TABLE_PATH: Optional[str] = os.environ.get("FD_GV_TABLES")
 
 
 def set_table_path(path: str) -> None:
@@ -20,7 +20,7 @@ def get_table_path() -> str:
     if _TABLE_PATH is None:
         raise RuntimeError(
             "GV diagram tables not configured: call gv.set_table_path() or set "
-            "FDTPU_GV_TABLES to a directory containing groups_* table files")
+            "FD_GV_TABLES to a directory containing groups_* table files")
     return _TABLE_PATH
 
 

@@ -1,7 +1,7 @@
 """GV table loading entry points (reference GV.jl:52-114).
 
 Table resolution order:
-1. the path set via ``gv.set_table_path`` / ``FDTPU_GV_TABLES``
+1. the path set via ``gv.set_table_path`` / ``FD_GV_TABLES``
 2. the package-bundled ``tables/`` directory (self-generated)
 """
 from __future__ import annotations
@@ -39,7 +39,7 @@ def _table_file(diag_type: str, order: int, v_order: int, g_order: int,
             return path
     raise FileNotFoundError(
         f"GV table {sub}/{fname} not found under {candidates}; set "
-        "FDTPU_GV_TABLES or generate tables with frontends.gv.generator")
+        "FD_GV_TABLES or generate tables with frontends.gv.generator")
 
 
 def diagsGV(diag_type: str, order: int, g_order: Optional[int] = None,

@@ -1,7 +1,7 @@
 """LoopPool: deduplicated basis of internal/external momentum loops.
 
 A loop variable is a linear combination of independent loop momenta:
-``loops[:, i] = variable @ basis[:, i]``.  On TPU the update is a single
+``loops[:, i] = variable @ basis[:, i]``.  On the device the update is a single
 batched matmul inside the jitted evaluation step (see ops.leaf_eval);
 this host-side class manages basis construction and deduplication.
 

@@ -1,4 +1,4 @@
-"""Physics models: vectorized leaf kernels for the batched TPU evaluator.
+"""Physics models: vectorized leaf kernels for the batched device evaluator.
 
 The reference evaluates leaves one scalar at a time inside the MC loop
 (example/benchmark.jl:61-87, Lehmann.Spectral kernels); here every kernel is

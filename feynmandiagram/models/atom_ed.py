@@ -1,6 +1,6 @@
 """Exact-diagonalization (ED) oracle for small Hubbard clusters.
 
-TPU-native counterpart of the reference's Atom package
+A JAX counterpart of the reference's Atom package
 (/root/reference/example/strong_coupling_expansion/Atom/src/hilbert.jl,
 green.jl:21-140, hubbard.jl:34-60): a binary Fock space with
 Jordan-Wigner fermion signs, an eigen-decomposed model (energies,
@@ -98,6 +98,7 @@ class EDModel:
         ``models.free_fermion.green_kernel`` convention,
         hubbard.jl:42-52).
         """
+        import jax
         import jax.numpy as jnp
 
         taus = jnp.asarray(taus)
@@ -111,7 +112,8 @@ class EDModel:
         # exponent [m, n, t] = -(β-τ) E_m - τ E_n
         expo = (-(self.beta - tpos)[None, None, :] * e[:, None, None]
                 - tpos[None, None, :] * e[None, :, None])
-        g = jnp.einsum("mn,mnt->t", w, jnp.exp(expo)) / self.z
+        g = jnp.einsum("mn,mnt->t", w, jnp.exp(expo),
+                       precision=jax.lax.Precision.HIGHEST) / self.z
         return sign * g
 
     def g_matsubara(self, n_freqs: int, mode_out: int = 0, mode_in: int = 0,

@@ -109,7 +109,7 @@ def build_sigma_evaluator(order: int, beta: float, *, mu: float = 0.0,
     num_leaves = lowered.num_leaves - len(lowered.const_slots)
 
     def fn(varT, U):
-        # complex is kept out of the graph (TPU has no C64/C128 compute):
+        # complex is kept out of the graph (the evaluator is real-only):
         # the Matsubara phase is applied as real cos/sin channels
         varT = jnp.asarray(varT, dtype)
         batch = varT.shape[-1]

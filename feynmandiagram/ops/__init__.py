@@ -1,3 +1,3 @@
-"""TPU compute path: lowering + batched leveled evaluation (+ Pallas kernels)."""
+"""Device compute path: lowering + batched leveled evaluation."""
 from .lowering import lower, LoweredGraph, LevelPlan, SumPlan, ProdPlan, PowerPlan
-from .evaluator import make_evaluator, evaluate_graphs, recommended_batch
+from .evaluator import make_evaluator, evaluate_graphs

@@ -1,9 +1,9 @@
-"""Platform-aware default device dtype.
+"""Default device dtype.
 
-The reference is Float64-first on CPU (common.jl:3-13); TPUs have no native
-f64, so requesting it merely triggers truncation warnings.  The device-side
-default follows the active jax x64 config: f64 when x64 is enabled (CPU
-test meshes enable it in tests/conftest.py), f32 otherwise (TPU).
+The reference is Float64-first on CPU (common.jl:3-13).  The device-side
+default follows the active jax x64 config: f64 when x64 is enabled (the
+CPU test meshes enable it in tests/conftest.py), f32 otherwise.  Scripts
+that run on the GPU pass their dtype explicitly.
 """
 from __future__ import annotations
 

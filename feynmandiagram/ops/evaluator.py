@@ -1,10 +1,10 @@
-"""Batched TPU evaluator for lowered graphs.
+"""Batched device evaluator for lowered graphs.
 
 Evaluates a ``LoweredGraph`` over a batch of Monte-Carlo samples as a
 sequence of level-synchronous vector ops under ``jax.jit``:
 
 - weights buffer ``w``: [num_slots, batch] — slot-major so a gather reads
-  whole rows (batch = lane dimension, pad to a multiple of 128 on TPU)
+  whole contiguous rows of ``batch`` samples
 - Sum level: ``segment_sum(w[src] * f, seg)`` with sorted segments
 - Prod level (per arity k): elementwise product of k gathered rows
 - Power level (per exponent n): ``integer_pow`` (safe for negative bases)
@@ -28,8 +28,7 @@ from ..computational_graph.graph import Graph
 
 def _take(w, idx):
     """Row gather without the bounds-clamp op: all index tables are built
-    host-side from slot assignments and are in bounds by construction.
-    Measured on v5e: the clamp fusions cost ~8% of the graph phase."""
+    host-side from slot assignments and are in bounds by construction."""
     return w.at[idx].get(mode="promise_in_bounds")
 
 
@@ -38,8 +37,8 @@ def _compensated_reduce(block: jnp.ndarray) -> jnp.ndarray:
 
     XLA preserves floating-point evaluation order (no unsafe reassociation),
     so the running-compensation recurrence survives compilation.  Roughly
-    4x the VPU work of a plain reduce, but the evaluator is gather/HBM
-    bound, so the cost is small; accuracy approaches f64 for f32 storage.
+    4x the arithmetic of a plain reduce; accuracy approaches f64 for f32
+    storage.
     """
     s = block[0]
     c = jnp.zeros_like(s)
@@ -58,9 +57,7 @@ def _eval_levels(lowered: LoweredGraph, w: jnp.ndarray,
 
     ``acc_dtype`` (optional) widens arithmetic: gathered rows are upcast,
     the op computes in ``acc_dtype``, and the block is stored back at
-    ``w.dtype``.  Used by the bf16-storage mode, where the HBM-resident
-    buffer (the bandwidth bottleneck) is half-width but sums/products still
-    accumulate in f32.
+    ``w.dtype`` (e.g. a half-width bf16 buffer with f32 accumulation).
 
     ``compensated`` switches every bucket reduction to Kahan summation —
     the production path for f32 storage on graphs deep enough that plain
@@ -87,13 +84,8 @@ def _eval_levels(lowered: LoweredGraph, w: jnp.ndarray,
                 w = jax.lax.dynamic_update_slice_in_dim(w, block.astype(w.dtype), sb.start, axis=0)
         for fb in level.fused:
             # uniform sum-of-products: out[c] = sum_a fac[a,c] * prod_k w[idx[k,a,c]]
-            # per-operand row gathers, tile-aligned blocks.  Two measured
-            # dead ends on v5e (PARITY.md profile table): a combined
-            # [n_op*arity*count]-row gather per level amortizes gather
-            # startup but its ~30 MB result spills to HBM (0.60x), and a
-            # single [n_op, arity, count]-index gather per bucket adds
-            # layout-fix copies (0.79x).  Very large buckets split into
-            # column chunks so gather results stay VMEM-resident.
+            # one row gather per operand position; very large buckets
+            # split into column chunks of ``chunk_rows`` rows.
             with jax.named_scope(f"fb{fb.arity}x{fb.n_op}"):
                 for c0 in range(0, fb.count, chunk_rows):
                     idx = fb.idx[..., c0:c0 + chunk_rows]
@@ -124,15 +116,12 @@ def _eval_levels_tile(lowered: LoweredGraph, w: jnp.ndarray,
                       chunk_rows: int = 256) -> jnp.ndarray:
     """Tile-row variant of ``_eval_levels``: ``w`` is [num_slots, nsub, 128].
 
-    Each graph row is a whole number of (8, 128) tiles, so a row gather
-    moves full tiles instead of single sublanes — measured 2-4x the
-    row-gather throughput of the flat [num_slots, batch] layout on v5e,
-    where the gather engine reads the full 8-row sublane tile per gathered
-    row (PARITY.md profile table).  Buckets with arity <= ``unroll_max``
-    additionally unroll the term sum into per-term row gathers whose
-    multiply-adds fuse into the slot update (measured: the 4-D
-    multiply_reduce fusion is ~4x slower than the same flops as unrolled
-    fused adds).  Requires sum_mode='fused' lowering.
+    Each graph row is reshaped to ``batch // 128`` rows of 128 samples.
+    Buckets with at least ``split_count`` rows and arity <= ``unroll_max``
+    unroll the term sum into per-(operand, term) row gathers whose
+    multiply-adds fuse into the slot update; smaller buckets gather once
+    per operand position and unroll the term sum as slice-adds.  Requires
+    sum_mode='fused' lowering.
     """
     a = acc_dtype or w.dtype
     for li, level in enumerate(lowered.levels):
@@ -141,18 +130,6 @@ def _eval_levels_tile(lowered: LoweredGraph, w: jnp.ndarray,
       with jax.named_scope(f"gL{li:02d}"):
         for fb in level.fused:
             with jax.named_scope(f"fb{fb.arity}x{fb.n_op}"):
-                # Gather strategy (measured on v5e, PARITY.md profile
-                # table): per-(operand, term) gathers amortize best for
-                # LARGE buckets (count >= split_count); for small buckets
-                # the ~0.3 us per-gather startup dominates, so gather once
-                # per operand position ([arity, count] indices) and unroll
-                # the term sum as slice-adds (the fused 4-D multiply_reduce
-                # is ~4x slower than the same flops as unrolled adds).
-                # Very large buckets additionally split into <=chunk_rows
-                # column chunks so per-chunk gather results stay
-                # VMEM-resident (one order-4 G*W product bucket has 5,368
-                # rows — unchunked, its two 44 MB gather results at batch
-                # 2048 spill to HBM).
                 for c0 in range(0, fb.count, chunk_rows):
                     idx = fb.idx[..., c0:c0 + chunk_rows]
                     fac = fb.fac[..., c0:c0 + chunk_rows]
@@ -194,31 +171,16 @@ def _eval_levels_tile(lowered: LoweredGraph, w: jnp.ndarray,
     return w
 
 
-def recommended_batch(lowered: LoweredGraph, *, dtype_bytes: int = 4,
-                      vmem_budget: int = 88 << 20, lane: int = 128,
-                      max_batch: int = 4096) -> int:
-    """Starting-point MC batch size for one chip: the largest batch keeping
-    the weight buffer ``num_slots * batch * dtype_bytes`` inside a
-    conservative VMEM budget, preferring tile-layout batches (multiples of
-    1024, so the [num_slots, batch//128, 128] tile-row buffer applies —
-    2-3x faster row gathers, see ``_eval_levels_tile``), falling back to a
-    lane multiple when VMEM only admits a sub-1024 batch.
+def resolve_layout(layout: str) -> str:
+    """The weight-buffer layout ('flat' or 'tile') that ``layout`` names.
 
-    Measured on v5e (PARITY.md batch scan): throughput cliffs when the
-    buffer outgrows VMEM (128 MB on v5e; the budget leaves room for bucket
-    tables and leaf buffers).  The measured feasibility boundary sits
-    between 92.3 MB (config-4 series at batch 3072: fast) and 94.3 MB
-    (order-4 vertex4 at batch 3072: cliff), so the 88 MiB default
-    reproduces every measured optimum: order-4 vertex4 (7,672 slots) ->
-    2048, order-5 (44,144 slots) -> 512, config-4 series (~7,0xx slots)
-    -> 3072.  The optimum shifts with graph shape — sweep +-2x around
-    this value on the target chip.
+    'auto' is 'flat' on every platform: on an H100 80GB HBM3 (400 W power
+    limit) the MC loop at order-4 Gamma4, batch 2048, f32 ran at ~1.41M
+    samples/s flat against ~1.36M tile, flat ahead in every alternated run.
     """
-    b = vmem_budget // (dtype_bytes * max(lowered.num_slots, 1))
-    if b >= 1024:
-        return min(int(b // 1024) * 1024, max_batch)
-    b = max(lane, int(b // lane) * lane)
-    return min(b, max_batch)
+    if layout not in ("auto", "flat", "tile"):
+        raise ValueError(f"unknown layout {layout!r}")
+    return "flat" if layout == "auto" else layout
 
 
 def make_evaluator(lowered: LoweredGraph, *, dtype=None, jit: bool = True,
@@ -234,16 +196,12 @@ def make_evaluator(lowered: LoweredGraph, *, dtype=None, jit: bool = True,
     ``dtype``/``acc_dtype`` are generic: e.g. ``dtype=jnp.bfloat16,
     acc_dtype=jnp.float32`` gives a half-width weight buffer with f32
     accumulation.  This is a low-level capability only (~1% storage error,
-    flat layout): the round-3 bf16 production knob was removed in round 4 —
-    it never beat the best f32 configuration at any measured production
-    shape (PARITY.md).
+    flat layout).
 
     ``layout``: 'flat' keeps the weight buffer [num_slots, batch];
-    'tile' reshapes it to [num_slots, batch//128, 128] so every graph row
-    is a whole number of (8, 128) TPU tiles — 2-4x faster row gathers (see
-    ``_eval_levels_tile``).  'auto' (default) picks 'tile' on TPU for
-    fused-mode f32 lowerings when the batch is a multiple of 1024,
-    else 'flat'.  Results are identical up to summation order.
+    'tile' reshapes it to [num_slots, batch//128, 128] (see
+    ``_eval_levels_tile``); 'auto' (default) is ``resolve_layout``'s
+    choice.  Results are identical up to summation order.
     """
     if dtype is None:
         from .dtypes import default_device_dtype
@@ -256,30 +214,22 @@ def make_evaluator(lowered: LoweredGraph, *, dtype=None, jit: bool = True,
     root_slots = jnp.asarray(lowered.root_slots)
     fused_only = all(lvl.sums is None and not lvl.sum_buckets and not lvl.prods
                      for lvl in lowered.levels)
-    if layout not in ("auto", "flat", "tile"):
-        raise ValueError(f"unknown layout {layout!r}")
-    if layout == "tile" and not fused_only:
+    tile_layout = resolve_layout(layout) == "tile"
+    if tile_layout and not fused_only:
         raise ValueError("layout='tile' requires sum_mode='fused' lowering")
 
     def _tile_ok(batch: int) -> bool:
-        if layout == "flat":
+        if not tile_layout:
             return False
-        if layout == "tile":
-            # explicit request: reject unsupported configs loudly instead of
-            # silently falling back (ADVICE r4 #1)
-            if jnp.dtype(dtype).itemsize != 4:
-                raise ValueError(
-                    "layout='tile' supports 4-byte dtypes only (the tile-row "
-                    f"buffer assumes the f32 (8, 128) tile); got {dtype}")
-            if batch % 256 != 0:
-                raise ValueError("layout='tile' needs batch % 256 == 0")
-            return True
-        # auto
-        if not fused_only or jnp.dtype(dtype).itemsize != 4:
-            return False
-        if jax.devices()[0].platform == "cpu":
-            return False
-        return batch % 1024 == 0
+        # explicit request: reject unsupported configs loudly instead of
+        # silently falling back
+        if jnp.dtype(dtype).itemsize != 4:
+            raise ValueError(
+                "layout='tile' supports 4-byte dtypes only (the tile-row "
+                f"buffer assumes the f32 (8, 128) tile); got {dtype}")
+        if batch % 256 != 0:
+            raise ValueError("layout='tile' needs batch % 256 == 0")
+        return True
 
     def evaluate(leaf_values: jnp.ndarray) -> jnp.ndarray:
         leaf_values = jnp.asarray(leaf_values, dtype)
@@ -307,10 +257,8 @@ def make_evaluator(lowered: LoweredGraph, *, dtype=None, jit: bool = True,
                 const_values.reshape((n_const,) + (1,) * (w.ndim - 1)),
                 (n_const,) + w.shape[1:])
             w = jax.lax.dynamic_update_slice_in_dim(w, cv, nl_input, axis=0)
-        # bucket-chunk size: keeps per-chunk gather results VMEM-resident.
-        # Measured optima on v5e (round 5, interleaved 5-rep medians):
-        # 256 rows for the tile layout (3,438k vs 3,229k at 512 on the
-        # order-4 default), 512 for flat.
+        # bucket-chunk size: rows per gather block of a large bucket.
+        # Untuned on the GPU: 256 for the tile layout, 512 for flat.
         if tile:
             w = _eval_levels_tile(lowered, w, acc_dtype, compensated,
                                   chunk_rows=chunk_rows or 256)

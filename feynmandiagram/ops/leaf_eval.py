@@ -20,6 +20,7 @@ import numpy as np
 
 from ..models.free_fermion import green_derive_tower
 from ..models.yukawa import interaction_derive
+from .evaluator import resolve_layout
 
 
 @dataclass
@@ -94,11 +95,10 @@ def make_leaf_evaluator(tables: LeafTables, *, beta: float, kF: float, lam: floa
 
     - ``varK``: [dim, max_loop_num, batch] sampled loop momenta
     - ``varT``: [num_tau, batch] sampled imaginary times
-    - ``layout``: 'tile' (or 'auto' on TPU with batch % 1024 == 0 and f32)
-      emits ``[num_leaves, batch//128, 128]`` natively — the tile-row form
-      the tile-layout graph evaluator consumes — so the expensive
-      [num_leaves, batch] layout conversion at the phase boundary is
-      replaced by two tiny reshapes of the [n_basis]/[num_tau] tables.
+    - ``layout``: 'tile' emits ``[num_leaves, batch//128, 128]`` natively
+      — the tile-row form the tile-layout graph evaluator consumes — so no
+      [num_leaves, batch] relayout is needed at the phase boundary; 'auto'
+      resolves as ``ops.evaluator.resolve_layout`` does for the graph phase.
     """
     if dtype is None:
         from .dtypes import default_device_dtype
@@ -120,13 +120,13 @@ def make_leaf_evaluator(tables: LeafTables, *, beta: float, kF: float, lam: floa
         varK = jnp.asarray(varK, dtype)
         varT = jnp.asarray(varT, dtype)
         batch = varK.shape[-1]
-        tile = layout == "tile" or (
-            layout == "auto" and batch % 1024 == 0
-            and jnp.dtype(dtype).itemsize == 4
-            and jax.devices()[0].platform != "cpu")
-        # LoopPool.update as one batched matmul (pool.jl:69-76)
+        tile = resolve_layout(layout) == "tile"
+        # LoopPool.update as one batched matmul (pool.jl:69-76).  HIGHEST:
+        # a float32 product may otherwise run in TF32 (~1e-3 relative
+        # error in the momenta) on GPUs with tensor cores.
         with jax.named_scope("loops"):
-            loops = jnp.einsum("nl,dlb->dnb", basis, varK)  # [dim, n_basis, batch]
+            loops = jnp.einsum("nl,dlb->dnb", basis, varK,  # [dim, n_basis, batch]
+                               precision=jax.lax.Precision.HIGHEST)
             q2 = jnp.sum(loops * loops, axis=0)             # [n_basis, batch]
         if tile:
             nsub = batch // 128

@@ -1,7 +1,7 @@
 """Lowering: symbolic Graph DAG -> flat, level-scheduled array-form IR.
 
 This replaces the reference's source-code compiler
-(/root/reference/src/backend/static.jl) with a TPU-first design: instead of
+(/root/reference/src/backend/static.jl) with a batched design: instead of
 emitting one scalar expression per node evaluated once per Monte-Carlo
 sample, the DAG is flattened to numpy arrays grouped by topological level
 and node kind, so each level evaluates as a few batched vector ops
@@ -33,11 +33,10 @@ from ..computational_graph.graph import Graph
 
 MAX_PROD_ARITY = 4
 
-# fused-mode slot alignment: bucket outputs are padded/aligned to the TPU
-# f32 sublane tile (8 rows) so the gather's [A*C, B] -> [A, C, B] reshape is
-# a layout-preserving bitcast and the per-bucket dynamic-update-slice writes
-# whole tiles.  Measured on v5e (PARITY.md profile table): unaligned
-# reshapes/updates are real copies costing ~30% of the graph phase.
+# fused-mode slot alignment: bucket outputs are padded/aligned to 8 rows so
+# the gather's [A*C, B] -> [A, C, B] reshape stays a bitcast and each
+# bucket's dynamic-update-slice starts on an aligned row.  Its effect on the
+# GPU is not measured.
 TILE_ROWS = 8
 
 
@@ -139,7 +138,7 @@ class SumBucket:
 class FusedBucket:
     """Sum-of-products: ``out[c] = sum_a fac[a, c] * prod_k w[idx[k, a, c]]``.
 
-    The uniform TPU primitive of ``sum_mode='fused'`` (the SDDMM-style fused
+    The uniform device primitive of ``sum_mode='fused'`` (the SDDMM-style fused
     multiply-gather of the BASELINE north star): Sum nodes become arity-a
     buckets of 1-operand terms; fan-out-1 Prod children are inlined as
     multi-operand terms (their node slots disappear); standalone Prods are
@@ -318,12 +317,12 @@ def lower(roots: Sequence[Graph], leafmap: Optional[Dict[int, int]] = None,
     - 'csr': Sum levels evaluate as sorted segment-sums (scatter-add)
     - 'bucketed': wide sums are pre-split to fan-in <= max_sum_arity and
       grouped by padded power-of-two arity into dense gather+reduce buckets
-      (no scatter; the TPU-friendly mode)
+      (no scatter)
     - 'fused': like 'bucketed', but fan-out-1 Prod children of Sum nodes are
       inlined as multi-operand terms of one uniform sum-of-products primitive
       (FusedBucket).  In parquet graphs ~80% of Prod nodes are fan-out-1
       (G*W products under mergeby Sums), so this removes most intermediate
-      node materialization — the fastest mode on TPU.
+      node materialization.
 
     ``reuse_slots`` (fused mode only; default on for 'fused'): recycle the
     slot of an internal node once the last level reading it has run, with a
@@ -335,10 +334,10 @@ def lower(roots: Sequence[Graph], leafmap: Optional[Dict[int, int]] = None,
     ``schedule``: level assignment of internal nodes.  'asap' = earliest
     (1 + max child level); 'alap' = latest level strictly below every
     consumer — TYPICALLY shorter lifetimes and a smaller peak live set,
-    hence a larger VMEM-resident batch under the ``recommended_batch``
-    sizing rule.  Neither dominates (with cse=True the interaction with
-    bucket grouping can make ALAP peak slightly larger — measured 1122 vs
-    1086 on order-3 vertex4, ADVICE r3), so 'auto' (default) simulates the
+    hence a smaller device buffer at a given batch.  Neither dominates
+    (with cse=True the interaction with bucket grouping can make ALAP peak
+    slightly larger — counted 1122 vs 1086 slots on order-3 vertex4), so
+    'auto' (default) simulates the
     reuse allocator under BOTH assignments — host-side integer work only —
     and keeps the one with fewer peak slots (ALAP when reuse is off or on
     ties).  Outputs are exactly equal for every schedule; roots and leaves
@@ -574,8 +573,8 @@ def lower(roots: Sequence[Graph], leafmap: Optional[Dict[int, int]] = None,
     # ---- schedule selection.  ALAP pulls each internal non-root node down
     # to just above its earliest consumer; 'auto' (default, reuse on) runs a
     # cheap peak-slot simulation of BOTH assignments and keeps the smaller
-    # (ADVICE r3 #1 / VERDICT r4 #6: neither schedule dominates — deep
-    # shared parquet nodes favor ASAP at some orders).
+    # (neither schedule dominates: deep shared parquet nodes favor ASAP at
+    # some orders).
     if reuse_slots is None:
         reuse_slots = sum_mode == "fused"
     if reuse_slots and sum_mode != "fused":

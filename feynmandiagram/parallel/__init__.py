@@ -2,9 +2,9 @@
 
 The Monte-Carlo sample axis is embarrassingly parallel — each chip
 evaluates its own sample shard through the identical lowered graph, and
-observable estimates reduce with one ``psum`` over ICI.  Level-partitioned
-evaluation of DAGs too large for one chip (BASELINE config 5) builds on the
-same mesh and is the next scaling stage.
+observable estimates reduce with one ``pmean``.  Level-partitioned
+evaluation of DAGs too large for one device (BASELINE config 5,
+``graph_shard``) builds on the same mesh.
 """
 from .sharding import (make_sample_mesh, shard_compiled, make_mc_step,
                        BATCH_AXIS)

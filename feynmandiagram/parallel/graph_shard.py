@@ -9,7 +9,7 @@ Per topological level:
 1. every device gathers, from its *local* buffer, the rows it owns among
    the union of slots read at this level (its send block, padded to the
    per-level maximum H_l);
-2. ``all_gather`` over the ``graph`` ICI axis assembles the level's halo
+2. ``all_gather`` over the ``graph`` mesh axis assembles the level's halo
    buffer ``[n*H_l, batch]`` — exactly the level's boundary activations.
    The exchange is split in two: rows produced at the *immediately
    preceding* level ride a "late" gather that the level must wait for,
@@ -20,7 +20,7 @@ Per topological level:
    halo (operand indices are remapped host-side to halo positions) and
    writes the chunk at its local offset.
 
-Per-device slot reuse (VERDICT r3 #3): ownership of global slots is
+Per-device slot reuse: ownership of global slots is
 single-assignment (the lowering must use ``reuse_slots=False``), but each
 device recycles its *local* rows with the same lifetime-based
 contiguous-interval allocator the single-chip lowering uses, once the last
@@ -39,7 +39,7 @@ data parallelism on a 2-D (graph x batch) mesh.  Works for
 ``sum_mode='fused'`` (the production mode) and ``'bucketed'``.
 
 No reference counterpart (the reference is single-process,
-/root/reference/src/computational_graph/eval.jl); this is the TPU-native
+/root/reference/src/computational_graph/eval.jl); this is the multi-device
 scale-out the brief adds (SURVEY §5.8b, §7.3-7).
 """
 from __future__ import annotations
@@ -271,7 +271,7 @@ def _plan(lowered: LoweredGraph, n_dev: int, *, interleave: bool = False,
         local_top = leaf_chunk
         for gi, (li, kind, plan, chunk) in enumerate(meta):
             # TILE_ROWS-align each group's offset so layout='tile' writes
-            # whole sublane tiles in this branch too (ADVICE r4 #4)
+            # whole sublane tiles in this branch too
             local_top = _pad_to(local_top, TILE_ROWS)
             count, start = plan.count, plan.start
             gslots = start + np.arange(count)
@@ -369,14 +369,6 @@ def _plan(lowered: LoweredGraph, n_dev: int, *, interleave: bool = False,
     return levels, stats, root_send_idx, root_pos, leaf_chunk
 
 
-def _shard_map_fn():
-    try:
-        from jax import shard_map
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
-    return shard_map
-
-
 def _resolve_plan(lowered: LoweredGraph, n_dev: int,
                   interleave: Optional[bool], local_reuse: bool):
     """Plan both ownership layouts when ``interleave`` is None and keep the
@@ -404,12 +396,9 @@ def _make_device_eval(levels, stats, root_send_idx, root_pos, dtype,
     def device_fn(leaf_block):
         """leaf_block: [leaf_chunk, batch] — this device's leaf rows.
 
-        With ``layout='tile'`` (batch % 1024 == 0) the local buffer and
-        halos are kept in the tile-row form [rows, batch//128, 128], the
-        same 2-4x row-gather win as the single-chip tile evaluator
-        (ops.evaluator._eval_levels_tile) — the sharded per-device buffers
-        are VMEM-resident by design, exactly the regime where the flat
-        layout pays the 8x sublane read amplification.
+        With ``layout='tile'`` the local buffer and halos are kept in the
+        tile-row form [rows, batch//128, 128], as in the single-device
+        tile evaluator (ops.evaluator._eval_levels_tile).
         """
         d = jax.lax.axis_index(graph_axis)
         batch = leaf_block.shape[1]
@@ -484,25 +473,15 @@ def _make_device_eval(levels, stats, root_send_idx, root_pos, dtype,
     return device_fn
 
 
-def _shard_map_compat(shard_map, device_fn, mesh, in_specs, out_specs):
-    for kwargs in ({"check_vma": False}, {"check_rep": False}, {}):
-        try:
-            return shard_map(device_fn, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, **kwargs)
-        except TypeError:
-            continue
-    raise RuntimeError("shard_map signature not supported")
-
-
 def lower_sharded_best(roots, leafmap, n_dev: int, *, sum_mode: str = "fused",
                        cse: bool = True, interleave: Optional[bool] = None,
                        local_reuse: bool = True, **lower_kw):
     """Lower ``roots`` for graph sharding with the level schedule that
     minimizes the per-device footprint on an ``n_dev`` mesh.
 
-    Neither schedule dominates for the sharded planner either (measured,
-    PARITY round 5: ALAP wins orders 3-4, ASAP wins order 5 — 6,658 vs
-    5,781 local slots and 4% less halo at n=8), so the generate-once
+    Neither schedule dominates for the sharded planner either (counted on
+    the host: ALAP wins orders 3-4, ASAP wins order 5 — 6,658 vs 5,781
+    local slots and 4% less halo at n=8), so the generate-once
     workflow lowers under BOTH and keeps the plan with fewer local slots
     (halo rows break ties).  Returns ``(lowered, schedule)``; pass the
     lowering to ``make_graph_sharded_evaluator``/``make_graph_sharded_mc_step``.
@@ -535,7 +514,6 @@ def make_graph_sharded_evaluator(lowered: LoweredGraph, mesh: Mesh, *,
     ``interleave=None`` plans both ownership layouts and keeps the one with
     less total halo traffic.
     """
-    shard_map = _shard_map_fn()
     if dtype is None:
         from ..ops.dtypes import default_device_dtype
         dtype = default_device_dtype()
@@ -550,9 +528,9 @@ def make_graph_sharded_evaluator(lowered: LoweredGraph, mesh: Mesh, *,
 
     device_fn = _make_device_eval(levels, stats, root_send_idx, root_pos,
                                   dtype, graph_axis, layout)
-    sharded = _shard_map_compat(shard_map, device_fn, mesh,
-                                (P(graph_axis, batch_axis),),
-                                P(None, batch_axis))
+    sharded = jax.shard_map(device_fn, mesh=mesh,
+                            in_specs=(P(graph_axis, batch_axis),),
+                            out_specs=P(None, batch_axis), check_vma=False)
 
     leaf_rows_padded = leaf_chunk * n_dev
 
@@ -610,7 +588,6 @@ def make_graph_sharded_mc_step(lowered: LoweredGraph, tables, mesh: Mesh, *,
     """
     from ..ops.leaf_eval import make_leaf_evaluator
 
-    shard_map = _shard_map_fn()
     if dtype is None:
         from ..ops.dtypes import default_device_dtype
         dtype = default_device_dtype()
@@ -639,9 +616,8 @@ def make_graph_sharded_mc_step(lowered: LoweredGraph, tables, mesh: Mesh, *,
     # sweep should not accumulate them indefinitely
     @lru_cache(maxsize=8)
     def _build(batch_per_device: int, iters: int):
-        """Construct + jit the sharded program once per (batch, iters) shape
-        (ADVICE r4 #2: the un-hoisted closure retraced and recompiled the
-        full sharded program on every call — minutes at order-5+ scale)."""
+        """Construct + jit the sharded program once per (batch, iters)
+        shape: rebuilding it per call would retrace and recompile it."""
         def device_fn(key):
             d = jax.lax.axis_index(graph_axis)
             b = jax.lax.axis_index(batch_axis)
@@ -674,8 +650,8 @@ def make_graph_sharded_mc_step(lowered: LoweredGraph, tables, mesh: Mesh, *,
             mean = tot / (iters * batch_per_device)
             return jax.lax.pmean(mean, batch_axis)
 
-        return jax.jit(_shard_map_compat(shard_map, device_fn, mesh,
-                                         (P(None),), P()))
+        return jax.jit(jax.shard_map(device_fn, mesh=mesh, in_specs=(P(None),),
+                                     out_specs=P(), check_vma=False))
 
     def step(key, batch_per_device: int, iters: int):
         keys = jnp.broadcast_to(key, (1,) + key.shape)

@@ -5,7 +5,7 @@ Design (not a port — the reference is single-process):
   trailing batch axis; the lowered-graph tables are replicated
 - the fused evaluator runs unchanged under jit: XLA partitions every
   per-sample op along the batch axis with zero communication
-- the MC estimation step reduces per-device partial sums with psum over ICI
+- the MC estimation step reduces per-device partial means with one pmean
 """
 from __future__ import annotations
 
@@ -47,19 +47,16 @@ def shard_compiled(compiled, mesh: Mesh, *, axis_name: str = BATCH_AXIS):
                    out_shardings=out_sharding)
 
 
-def make_mc_step(compiled, mesh: Mesh, *, beta: float, axis_name: str = BATCH_AXIS):
+def make_mc_step(compiled, mesh: Mesh, *, beta: float, axis_name: str = BATCH_AXIS,
+                 dtype=None):
     """One full Monte-Carlo estimation step, SPMD over the mesh.
 
-    Each device draws its own sample shard from a per-device PRNG fold,
-    evaluates all root weights, and the global estimator mean reduces with a
-    single ``psum`` over ICI.  Returns ``step(key, batch_per_device) ->
-    (means[R], key)``; jit once, run many.
+    Each device draws its own sample shard from a per-device PRNG fold
+    (``fold_in(key, device_index)``; samples drawn in ``dtype``, default
+    JAX's default float), evaluates all root weights, and the global
+    estimator mean reduces with a single ``pmean``.  Returns
+    ``step(key, batch_per_device) -> means[R]``; jit once, run many.
     """
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     n_dev = mesh.devices.size
     dim = 3
     max_loop = compiled.max_loop_num
@@ -74,14 +71,16 @@ def make_mc_step(compiled, mesh: Mesh, *, beta: float, axis_name: str = BATCH_AX
     def step(key, batch_per_device: int):
         def device_fn(key):
             k1, k2 = per_device(key)
-            varK = jax.random.normal(k1, (dim, max_loop, batch_per_device))
-            varT = jax.random.uniform(k2, (num_tau, batch_per_device)) * beta
+            varK = jax.random.normal(k1, (dim, max_loop, batch_per_device),
+                                     dtype)
+            varT = jax.random.uniform(k2, (num_tau, batch_per_device),
+                                      dtype) * beta
             leaf_values = compiled.leaf_fn(varK, varT)
             roots = compiled.graph_fn(leaf_values)  # [R, batch_per_device]
             partial = jnp.mean(roots, axis=1)
             return jax.lax.pmean(partial, axis_name)
 
-        sharded = shard_map(device_fn, mesh=mesh, in_specs=(P(axis_name),),
+        sharded = jax.shard_map(device_fn, mesh=mesh, in_specs=(P(axis_name),),
                             out_specs=P())
         keys = jnp.broadcast_to(key, (n_dev,) + key.shape)
         return sharded(keys)

@@ -4,7 +4,7 @@ Reference: /root/reference/src/utility.jl.  ``taylorAD`` expands every graph
 in truncated Taylor series whose coefficients are fresh Graph leaves (for
 leaf nodes) or operator applications of child series (for internal nodes);
 the resulting coefficient graphs share subgraphs across orders, and all
-orders lower into ONE flat IR so that sharing survives on TPU.
+orders lower into ONE flat IR so that sharing survives on the device.
 """
 from __future__ import annotations
 

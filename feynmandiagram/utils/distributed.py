@@ -1,6 +1,6 @@
-"""Multi-controller bring-up for multi-host TPU pods (SURVEY §5.8).
+"""Multi-controller bring-up for multi-host device clusters (SURVEY §5.8).
 
-The reference is single-process; on TPU pods, each host process calls
+The reference is single-process; on a multi-host cluster each host process calls
 ``initialize_distributed`` before any jax call, then builds global meshes
 with jax.devices() spanning all hosts.
 """

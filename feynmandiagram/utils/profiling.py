@@ -6,13 +6,20 @@
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+from typing import Dict, Optional
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/fdtpu_trace"):
-    """Capture a jax.profiler trace around a code block."""
+def trace(log_dir: Optional[str] = None):
+    """Capture a jax.profiler trace around a code block (default directory:
+    ``$TMPDIR/fd_trace``)."""
+    import os
+    import tempfile
+
     import jax
+
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "fd_trace")
 
     jax.profiler.start_trace(log_dir)
     try:

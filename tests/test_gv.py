@@ -79,7 +79,7 @@ class TestCountertermEquivalence:
                 assert got == pytest.approx(expected), (order, i)
 
     def test_sigma3_counterterms(self):
-        """Same contract at base order 3 (taylor.jl:97-113; VERDICT r3 #6).
+        """Same contract at base order 3 (taylor.jl:97-113).
 
         Order-3 counterterm files exercise deeper Taylor-product
         convolutions and per-variable order capping than the order-2 case

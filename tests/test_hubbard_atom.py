@@ -1,4 +1,4 @@
-"""Hubbard-atom end-to-end oracle: parquet sigma -> lowered TPU evaluator ->
+"""Hubbard-atom end-to-end oracle: parquet sigma -> lowered device evaluator ->
 Matsubara phase -> MC tau-integration vs the closed-form self-energy.
 
 Revives the legacy reference test (test/hubbard.jl:1-114) on this pipeline;

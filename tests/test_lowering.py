@@ -334,16 +334,14 @@ class TestTileLayout:
                                         layout="flat")(vals))
         tile_c = np.asarray(make_evaluator(lowered, dtype=jnp.float32,
                                            layout="tile", compensated=True)(vals))
-        # atol covers the f32 *storage* rounding floor (PARITY.md precision
-        # note): compensation fixes reduction order, not stored rounding
+        # atol covers the f32 *storage* rounding floor: compensation
+        # fixes reduction order, not stored rounding
         np.testing.assert_allclose(tile_c, ref, rtol=2e-5, atol=1e-6)
 
     @pytest.mark.parametrize("batch", [256, 512])
     def test_tile_partial_sublane_batches(self, batch):
-        """Partial-sublane tile rows (nsub = batch//128 < 8, round 5): the
-        [S, nsub, 128] buffer at batch 512/256 must equal the flat layout —
-        this is the VMEM-resident shape of the order-5 production graph
-        (VERDICT r4 weak #1)."""
+        """Partial tile rows (nsub = batch//128 < 8): the [S, nsub, 128]
+        buffer at batch 512/256 must equal the flat layout."""
         import jax.numpy as jnp
         from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
         from feynmandiagram.frontends.parquet import (DiagPara, Interaction,
@@ -396,7 +394,7 @@ class TestTileLayout:
     def test_tile_rejects_bad_dtype_and_batch(self):
         """An explicit layout='tile' request fails loudly (no silent flat
         fallback) for non-4-byte dtypes and non-256-multiple batches
-        (ADVICE r4 #1)."""
+       ."""
         import jax.numpy as jnp
         from feynmandiagram.computational_graph import Graph
         from feynmandiagram.computational_graph.operators import SUM
@@ -427,7 +425,7 @@ class TestTileLayout:
 
 class TestPrecision:
     def test_f32_vs_f64_order3_ver4(self):
-        """Quantify f32 (TPU) vs f64 error on a real parquet graph
+        """Quantify f32 vs f64 error on a real parquet graph
         (SURVEY hard part #4: Prod/Power numerics in reduced precision)."""
         import jax.numpy as jnp
         from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
@@ -573,40 +571,12 @@ class TestCompensatedSummation:
         assert err_kahan < 5e-6, err_kahan
 
 
-class TestRecommendedBatch:
-    def test_vmem_rule(self):
-        """recommended_batch implements the measured VMEM-residency rule
-        (PARITY.md batch scan): largest tile-layout batch (multiple of
-        1024) with num_slots * batch * 4 B <= budget, falling back to a
-        lane multiple, clamped to [128, 4096]."""
-        from feynmandiagram.ops.evaluator import recommended_batch
-
-        class _L:
-            def __init__(self, n):
-                self.num_slots = n
-
-        # order-4 scale (7,672 live slots, round-5 second CSE pass) -> tile
-        # batch 2048 (the measured optimum; 3072 = 94.3 MB is past the
-        # measured cliff)
-        b = recommended_batch(_L(7672))
-        assert b == 2048
-        # order-5 scale: VMEM only admits a sub-1024 (flat-layout) batch;
-        # 44,144 live slots -> 512, the measured optimum (90.4 MB buffer)
-        b5 = recommended_batch(_L(44144))
-        assert b5 == 512
-        # config-4 series scale (~7,0xx slots): 3072 measured 1.33x faster
-        assert recommended_batch(_L(7000)) == 3072
-        # tiny graphs clamp to max_batch, huge ones to one lane tile
-        assert recommended_batch(_L(10)) == 4096
-        assert recommended_batch(_L(10_000_000)) == 128
-
-
 class TestSchedule:
     def test_alap_equals_asap_and_shrinks_peak(self):
         """ALAP scheduling preserves values exactly and, on this non-cse
         config, does not enlarge the peak live set.  (With cse=True the
         bucket-grouping interaction can tip it the other way — measured
-        1122 vs 1086 slots on this graph, ADVICE r3 — so the assertion is
+        1122 vs 1086 slots on this graph — so the assertion is
         deliberately scoped to cse=False.)"""
         import numpy as np
         from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
@@ -634,7 +604,7 @@ class TestSchedule:
     def test_auto_picks_min(self):
         """schedule='auto' (round-5 default) must land on the smaller of the
         ASAP/ALAP peak slot counts — including with cse=True, the config
-        where ALAP can lose (ADVICE r3) — and produce identical outputs."""
+        where ALAP can lose — and produce identical outputs."""
         import numpy as np
         from feynmandiagram.frontends import ChargeCharge, Instant, NoHartree
         from feynmandiagram.frontends.parquet import (DiagPara, Interaction,

@@ -141,14 +141,13 @@ class TestGraphSharding:
         # the point of the design: per-device buffer strictly smaller than
         # the full single-chip buffer, and boundary traffic is logged
         # (tiny graph: per-bucket padding keeps the ratio well above 1/8;
-        # the order-6 memory-scaling demonstration lives in the scaling
-        # harness, benchmarks/scaling.py)
+        # the order-6 memory-scaling check is benchmarks/certify_sharded.py)
         assert sharded.stats.local_slots < sharded.stats.full_slots // 2
         assert len(sharded.stats.halo_rows_per_level) == lowered.num_levels + 1
         assert sharded.stats.halo_bytes_per_sample() > 0
 
     def test_local_reuse_and_ownership_options(self):
-        """Per-device slot reuse (VERDICT r3 #3) and ownership balancing:
+        """Per-device slot reuse and ownership balancing:
         every (local_reuse, interleave) combination must equal single-chip,
         reuse must shrink the per-device buffer toward live_slots/n, and
         the auto-pick must choose the lower-traffic ownership."""
@@ -335,7 +334,7 @@ class TestGraphSharding:
                 sum(st_best.halo_rows_per_level)) == stats[best_sched]
 
     def test_graph_sharded_mc_step_2d_order5(self):
-        """BASELINE config 5 SERVING at its named scale (VERDICT r4 #1b):
+        """BASELINE config 5 SERVING at its named scale:
         the graph-sharded MC step — on-device sampling + leaf kernels +
         halo-exchanged evaluation + pmean on the 2-D (graph x batch) mesh —
         at ORDER 5, equal to the single-chip estimator under the identical
